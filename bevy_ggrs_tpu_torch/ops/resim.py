@@ -1,0 +1,232 @@
+"""Advance / resimulate — the frame engine, in eager torch.
+
+Port of ``bevy_ggrs_tpu/ops/resim.py``.  A rollback of ``k`` frames is one
+call: a Python loop over the frames (the reference's ``lax.scan``) that
+writes each frame's state into preallocated ``[k, ...]`` stacked tensors,
+then ONE checksum pass over the stacked output (the JAX package's
+``fused_checksums=True`` placement, bit-identical to checksumming inside
+the loop because the checksum is an integer wrapping sum).  That pass is
+where the checksum fold kernel runs, once per resim.
+
+Frame semantics match the reference: an AdvanceFrame increments the frame
+counter and then runs the step, so the step computing frame ``f`` sees
+``ctx.frame == f`` and ``ctx.time_seconds == f / fps``.  Every advance
+starts with the despawn-retirement sweep at the fixed horizon
+``frame - retention`` (see the JAX module's docstring for why that horizon
+keeps slot reuse peer-independent).
+
+Eager torch runs the same kernels for a frame whatever the rollback depth,
+so the port needs no fixed-length program for bit-determinism; the
+canonical (padded) functions are kept so an app configured with
+``canonical_depth`` has the same interface and results as in JAX.
+
+Not in this slice: ``StepCtx.rng_key`` (no ported model reads it), the
+speculation, branched and packed functions.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Tuple
+
+import numpy as np
+import torch
+
+from ..snapshot.checksum import world_checksums
+from ..snapshot.world import Registry, WorldState, despawn_confirmed
+from ..utils.frames import frame_add
+from ..utils.tree import tree_map
+
+
+@dataclass
+class StepCtx:
+    """Per-frame context handed to the user step function.
+
+    ``inputs``/``input_status`` are the ``PlayerInputs`` analog (tensors on
+    the world's device); the scalars are host values, so a step can use
+    them in tensor arithmetic without an upload.  ``time_seconds`` and
+    ``delta_seconds`` are float32, as in the JAX package."""
+
+    inputs: torch.Tensor  # [num_players, *input_shape]
+    input_status: torch.Tensor  # int8[num_players] (InputStatus)
+    frame: int  # the frame being computed
+    retire_frame: int  # despawn-retirement horizon
+    time_seconds: np.float32  # GgrsTime total
+    delta_seconds: np.float32  # 1 / fps
+
+
+StepFn = Callable[[WorldState, StepCtx], WorldState]
+
+
+def advance(
+    reg: Registry,
+    step_fn: StepFn,
+    state: WorldState,
+    inputs: torch.Tensor,
+    status: torch.Tensor,
+    frame: int,
+    retention: int,
+    fps: int,
+) -> WorldState:
+    """One AdvanceWorld: despawn-retirement sweep, then the user step."""
+    retire = frame_add(frame, -retention)
+    state = despawn_confirmed(reg, state, retire)
+    ctx = StepCtx(
+        inputs=inputs,
+        input_status=status,
+        frame=frame,
+        retire_frame=retire,
+        time_seconds=np.float32(frame) / np.float32(fps),
+        delta_seconds=np.float32(1.0 / fps),
+    )
+    state = step_fn(state, ctx)
+    if not reg.is_identity_strategy():
+        # a lossy store strategy makes the stored form canonical: round-trip
+        # the live state so a resim from a snapshot matches the live pass
+        state = reg.load_state(reg.store_state(state))
+    return state
+
+
+def _on_device(x: Any, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x).to(device)
+
+
+def _empty_stack(state: WorldState, k: int) -> WorldState:
+    return tree_map(
+        lambda a: torch.empty((k, *a.shape), dtype=a.dtype, device=a.device), state
+    )
+
+
+def _write_frame(stacked: WorldState, i: int, state: WorldState) -> None:
+    tree_map(lambda dst, src: dst[i].copy_(src), stacked, state)
+
+
+def resim(
+    reg: Registry,
+    step_fn: StepFn,
+    state: WorldState,
+    inputs_seq,  # [k, num_players, *input_shape]
+    status_seq,  # int8[k, num_players]
+    start_frame: int,  # the frame the state currently sits at
+    retention: int,
+    fps: int,
+) -> Tuple[WorldState, WorldState, torch.Tensor]:
+    """Advance ``k`` frames.
+
+    Returns ``(final_state, stacked_states, checksums)``: ``stacked_states``
+    holds the state after each advance (leading axis k — the per-frame
+    SaveWorld outputs) and ``checksums`` is ``[k, 2]`` (u32 in int64)."""
+    dev = state.device
+    inputs_seq = _on_device(inputs_seq, dev)
+    status_seq = _on_device(status_seq, dev)
+    k = inputs_seq.shape[0]
+    stacked = _empty_stack(state, k)
+    frame = int(start_frame)
+    for i in range(k):
+        frame = frame_add(frame, 1)
+        state = advance(reg, step_fn, state, inputs_seq[i], status_seq[i],
+                        frame, retention, fps)
+        _write_frame(stacked, i, state)
+    return state, stacked, world_checksums(reg, stacked)
+
+
+def resim_padded(
+    reg: Registry,
+    step_fn: StepFn,
+    state: WorldState,
+    inputs_seq,  # [k_max, num_players, *input_shape]
+    status_seq,  # int8[k_max, num_players]
+    start_frame: int,
+    n_real: int,  # how many leading frames actually advance
+    retention: int,
+    fps: int,
+) -> Tuple[WorldState, WorldState, torch.Tensor]:
+    """Fixed-length resim with masked padding: the first ``n_real`` frames
+    advance, later rows repeat the carried state (and its checksum), as the
+    JAX package's canonical program does."""
+    dev = state.device
+    inputs_seq = _on_device(inputs_seq, dev)
+    status_seq = _on_device(status_seq, dev)
+    k = inputs_seq.shape[0]
+    n_real = int(n_real)
+    stacked = _empty_stack(state, k)
+    frame = int(start_frame)
+    for i in range(k):
+        if i < n_real:
+            frame = frame_add(frame, 1)
+            state = advance(reg, step_fn, state, inputs_seq[i], status_seq[i],
+                            frame, retention, fps)
+        _write_frame(stacked, i, state)
+    return state, stacked, world_checksums(reg, stacked)
+
+
+def pad_repeat_last(arr, pad: int):
+    """Extend the frame axis by repeating the last row ``pad`` times."""
+    if pad == 0:
+        return arr
+    if isinstance(arr, torch.Tensor):
+        return torch.cat([arr, arr[-1:].expand(pad, *arr.shape[1:])])
+    arr = np.asarray(arr)
+    return np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
+
+
+def trim_frames(tree, k: int):
+    """``tree_map(a[:k])``: the first ``k`` frames, as views."""
+    return tree_map(lambda a: a[:k], tree)
+
+
+def slice_frame(stacked_states: WorldState, i: int) -> WorldState:
+    """The state after the (i+1)-th advance of a stacked resim output (views
+    into the stacked tensors, no copy)."""
+    return tree_map(lambda a: a[i], stacked_states)
+
+
+def make_resim_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16):
+    """k-frame resim ``fn(state, inputs_seq, status_seq, start_frame)`` ->
+    ``(final, stacked, checksums)``."""
+
+    def fn(state, inputs_seq, status_seq, start_frame, _retire_unused=None):
+        return resim(reg, step_fn, state, inputs_seq, status_seq, start_frame,
+                     retention, fps)
+
+    return fn
+
+
+def make_canonical_resim_fn(reg: Registry, step_fn: StepFn, fps: int,
+                            retention: int = 16, k_max: int = 16):
+    """:func:`resim_padded` at a fixed ``k_max``, wrapped to the plain
+    resim_fn signature (pads, runs, trims)."""
+
+    def fn(state, inputs_seq, status_seq, start_frame, _unused=None):
+        k = inputs_seq.shape[0]
+        if k > k_max:
+            raise ValueError(
+                f"resim depth {k} exceeds canonical_depth {k_max}; raise "
+                "App(canonical_depth=...) above every session window"
+            )
+        pad = k_max - k
+        final, stacked, checks = resim_padded(
+            reg, step_fn, state, pad_repeat_last(inputs_seq, pad),
+            pad_repeat_last(status_seq, pad), start_frame, k, retention, fps,
+        )
+        if pad:
+            stacked, checks = trim_frames((stacked, checks), k)
+        return final, stacked, checks
+
+    return fn
+
+
+def make_advance_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16):
+    """Single-frame advance ``fn(state, inputs, status, frame)`` ->
+    ``(state, checksum)``, where ``frame`` is the frame being computed."""
+
+    def fn(state, inputs, status, frame, _retire_unused=None):
+        dev = state.device
+        final, _, checks = resim(
+            reg, step_fn, state, _on_device(inputs, dev)[None],
+            _on_device(status, dev)[None], frame_add(int(frame), -1),
+            retention, fps,
+        )
+        return final, checks[0]
+
+    return fn
