@@ -8,10 +8,12 @@ XOR-combined across types.  Identical state bits give identical checksums
 in both packages and on every device.
 
 u32 values are held in int64 tensors in ``[0, 2**32)`` (torch on the CPU
-has no uint32 shift, sum or compare).  The per-entity fold and masked sum
-of the components — the work of the removed TPU kernel — run through
-:func:`..ops.checksum_fold.checksum_fold`: the CUDA kernel for a world on
-the card, its plain version for a world on the CPU.
+has no uint32 shift, sum or compare).  The whole pass but the resource
+parts — the per-entity fold and masked sum of the components, the work of
+the removed TPU kernel, with the type tags, the entity part and the XOR
+across them — runs through :func:`..ops.checksum_fold.checksum_fold`: the
+CUDA kernel for a world on the card, its plain version for a world on the
+CPU.
 
 Every function here that takes a ``stacked`` world expects a leading frame
 axis on every leaf (a resim's stacked output); the single-world functions
@@ -20,13 +22,14 @@ add that axis and drop it again.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from functools import lru_cache
+from typing import Sequence, Tuple
 
 import torch
 
 from ..ops.checksum_fold import MASK32, _fold_rows, checksum_fold, fmix32, mix32
 from ..utils.tree import tree_leaves, tree_map
-from .world import Registry, WorldState, active_mask
+from .world import Registry, WorldState
 
 __all__ = [
     "MASK32", "mix32", "fmix32", "_fold_rows", "to_u32_lanes", "fold_inputs",
@@ -74,6 +77,7 @@ def to_u32_lanes(arr: torch.Tensor) -> torch.Tensor:
     return _i32_lanes(arr, 1).to(torch.int64) & MASK32
 
 
+@lru_cache(maxsize=4096)
 def _type_tag(name: str, seed: int) -> int:
     """Stable tag per registered type name (FNV-1a over utf-8)."""
     h = 0x811C9DC5 ^ (seed & MASK32)
@@ -107,7 +111,10 @@ def _component_lanes(reg: Registry, stacked: WorldState, name: str) -> torch.Ten
 def fold_inputs(reg: Registry, stacked: WorldState, names: Sequence[str],
                 seeds: Tuple[int, int] = SEEDS) -> tuple:
     """The :func:`checksum_fold` arguments for components ``names`` of a
-    stacked world: lanes, presence masks, ids, liveness masks and tags."""
+    stacked world: lanes, presence masks, ids, liveness masks, component
+    tags, ``next_id`` and entity tags.  Nothing here launches a kernel or
+    copies to the device for columns whose lanes are a view (32-bit
+    dtypes without a custom hash)."""
     return (
         [_component_lanes(reg, stacked, n) for n in names],
         [stacked.has[n].contiguous() for n in names],
@@ -115,6 +122,8 @@ def fold_inputs(reg: Registry, stacked: WorldState, names: Sequence[str],
         stacked.alive.contiguous(),
         stacked.despawn_pending.contiguous(),
         [(_type_tag(n, seeds[0]), _type_tag(n, seeds[1])) for n in names],
+        stacked.next_id.contiguous(),
+        (_type_tag("__entities__", seeds[0]), _type_tag("__entities__", seeds[1])),
     )
 
 
@@ -124,10 +133,7 @@ def component_parts(
 ) -> torch.Tensor:
     """Checksum parts ``[k, C, 2]`` (u32 in int64) of components ``names``
     for both seeds — one :func:`checksum_fold` call over all of them."""
-    args = fold_inputs(reg, stacked, names, seeds)
-    sums = checksum_fold(*args)
-    tags = torch.tensor(args[5], dtype=torch.int64, device=sums.device).reshape(-1, 2)
-    return fmix32(sums ^ tags)
+    return checksum_fold(*fold_inputs(reg, stacked, names, seeds))[:, 1:]
 
 
 def component_part(reg: Registry, w: WorldState, name: str, seed: int) -> torch.Tensor:
@@ -168,38 +174,26 @@ def resource_part(reg: Registry, w: WorldState, name: str, seed: int) -> torch.T
     return _resource_parts(reg, _stack1(w), name, seed)[0]
 
 
-def _entity_parts(stacked: WorldState, seed: int) -> torch.Tensor:
-    """``[k]`` hash of (active entity count, total ever spawned)."""
-    h = torch.full_like(stacked.next_id, _type_tag("__entities__", seed),
-                        dtype=torch.int64)
-    h = mix32(h, _u32(active_mask(stacked).sum(-1)))
-    h = mix32(h, _u32(stacked.next_id))
-    return fmix32(h)
-
-
 def entity_part(w: WorldState, seed: int) -> torch.Tensor:
     """Hash of (active entity count, total ever spawned) — catches
     spawn/despawn divergence with no registered types."""
-    return _entity_parts(_stack1(w), seed)[0]
+    return checksum_fold(*fold_inputs(None, _stack1(w), [], (seed, seed)))[0, 0, 0]
 
 
 def world_checksums(reg: Registry, stacked: WorldState) -> torch.Tensor:
     """Checksums ``[k, 2]`` (hi, lo; u32 in int64) of every stacked frame.
 
-    The one pass over a resim's stacked output: a single fold over every
-    checksummed component and frame, then small ops for the rest."""
+    The one pass over a resim's stacked output: a single
+    :func:`checksum_fold` call computes the entity part and every
+    checksummed component's part; a checksummed resource's part, where the
+    registry has one, is XORed in with small tensor ops."""
     names = [n for n, s in reg.components.items() if s.checksum]
-    parts = component_parts(reg, stacked, names)
-    out: List[torch.Tensor] = []
-    for si, seed in enumerate(SEEDS):
-        part = _entity_parts(stacked, seed)
-        for ci in range(len(names)):
-            part = part ^ parts[:, ci, si]
-        for name, spec in reg.resources.items():
-            if spec.checksum:
-                part = part ^ _resource_parts(reg, stacked, name, seed)
-        out.append(part)
-    return torch.stack(out, dim=-1)
+    out = checksum_fold(*fold_inputs(reg, stacked, names))[:, 0]
+    for name, spec in reg.resources.items():
+        if spec.checksum:
+            out = out ^ torch.stack(
+                [_resource_parts(reg, stacked, name, seed) for seed in SEEDS], dim=-1)
+    return out
 
 
 def world_checksum(reg: Registry, w: WorldState) -> torch.Tensor:

@@ -9,20 +9,30 @@ and no result.  The phases:
 1. device   — the card's name and power limit (``nvidia-smi``); fails
                without CUDA;
 2. build    — compiles ``csrc/checksum_fold.cu`` for sm_90a (timed);
-3. kernel   — the checksum fold kernel against its plain torch version on
+3. kernel   — the checksum pass kernel against its plain torch version on
                the card, bit for bit: stress_soa 1M entities x k=8 with
-               despawned rows, box_game / fixed_point worlds (L=2, int32),
-               and bool / bf16 / int64 columns; kernel and plain times;
-4. resim    — ``App.resim_fn`` on stress_soa at 1M entities x k=8 (the
+               and without despawned rows, a frame slice of it, box_game /
+               fixed_point worlds (L=2, int32), bool / bf16 / int64
+               columns, ragged N (100,003) and a frame slice of it (an
+               unaligned storage offset), 20 components, k=1 and k=17, a
+               custom hash and no checksummed component; kernel and plain
+               times, the bound (bytes over HBM; integer operations per
+               pipe, ALU and FMA, and their issue, over the card's rates);
+4. capture  — ``world_checksums`` at 1M x k=8 under
+               ``torch.cuda.set_sync_debug_mode("error")``; captured in a
+               CUDA graph, replayed on a world changed in place, equal to
+               an eager call; a profiler trace of the pass: its device
+               kernels and host-to-device copies per call;
+5. resim    — ``App.resim_fn`` on stress_soa at 1M entities x k=8 (the
                bench path), states and checksums: resim frames/s (median
                and spread of 5 reps x 10 calls), the checksum pass's share;
-5. parity   — fixed_point's scripted 12-frame resim on the card and on CPU
+6. parity   — fixed_point's scripted 12-frame resim on the card and on CPU
                torch: the 64-bit checksums must match frame by frame; a
                4096-entity stress_soa resim is held to the CPU's states;
-6. synctest — ``GgrsRunner`` + ``SyncTestSession`` at check_distance 7 with
+7. synctest — ``GgrsRunner`` + ``SyncTestSession`` at check_distance 7 with
                flipping inputs: box_game and fixed_point for 600 frames,
                stress_soa at 100k entities for 120 frames; zero mismatches;
-7. result   — the kernels line, the card line, then
+8. result   — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Kernel launch counts are reset just before each driven path and read just
@@ -44,15 +54,28 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense, 700 W): HBM3 bandwidth, and the
-# non-tensor 32-bit rate used for the fold's integer operations.
+# H100 SXM data-sheet HBM3 bandwidth (700 W).  The integer rates are
+# computed from the card.  Compute capability 9.0 retires 64 results per
+# clock per SM of 32-bit integer add, shift, funnel shift and logic, and 64
+# of 32-bit integer multiply and multiply-add (CUDA C++ Programming Guide,
+# arithmetic instruction throughput table).  The two run on different
+# pipes: IMAD on the FMA pipe, xor/shift/funnel shift/add on the integer
+# ALU pipe, side by side.  An SM issues at most one warp instruction per
+# clock in each of its 4 sub-partitions: 128 thread operations per clock.
+# Each rate is per SM, times the SM count and the max SM clock that
+# nvidia-smi reports.
 HBM_BYTES_PER_S = 3.35e12
-SCALAR32_OPS_PER_S = 67e12
+ALU_OPS_PER_CLOCK_PER_SM = 64
+FMA_PIPE_OPS_PER_CLOCK_PER_SM = 64
+ISSUE_OPS_PER_CLOCK_PER_SM = 128
 
 SIZES = {
     "bench_entities": 1_000_000,
     "bench_k": 8,
     "dtype_entities": 100_000,
+    "ragged_entities": 100_003,
+    "many_comps": 20,
+    "profile_calls": 20,
     "synctest_frames": 600,
     "synctest_stress_entities": 100_000,
     "synctest_stress_frames": 120,
@@ -67,11 +90,21 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def card_line() -> str:
+def nvidia_smi(query: str) -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    ).stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def sm_clocks_per_s() -> float:
+    """SMs x the max SM clock (``clocks.max.sm``): SM clocks per second."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
 def sync(dev) -> None:
@@ -80,8 +113,9 @@ def sync(dev) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, timed with CUDA
-    events around each run after two warm-up runs."""
+    """Median milliseconds of one ``fn()`` call on its own (the host's time
+    to enqueue it included), timed with CUDA events around each of ``reps``
+    runs after two warm-up runs."""
     for _ in range(2):
         fn()
     times = []
@@ -96,6 +130,23 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def run_ms(fn, calls: int) -> float:
+    """Milliseconds per call over a run of ``calls`` back-to-back calls,
+    timed with CUDA events around the run after two warm-up calls: the
+    device's time when the host enqueues calls faster than they run."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 # -- the fold's inputs and its bound --------------------------------------------
 
 
@@ -107,29 +158,100 @@ def fold_inputs(reg, stacked):
 
 
 def fold_bound(args) -> dict:
-    """Least time for the fold on these inputs: every byte it needs read once
-    (a row's pending byte only if alive, its has byte only if active, its
-    lanes and id only if kept) and its output written once, over HBM
-    bandwidth; and its 32-bit integer operations over the scalar rate."""
-    lanes, has, ids, alive, pending, _ = args
+    """Least time for the checksum pass on these inputs, the largest of:
+
+    - bytes: every byte it needs read once (a row's alive byte; its pending
+      byte only if alive; a has byte only if active; lanes only if kept;
+      the id if kept by any component; ``next_id``) and its output written
+      once, over HBM bandwidth;
+    - the 32-bit integer operations these rows need, counted per pipe, the
+      seed-independent key half of mix32 once per lane and once per row
+      for the id, only kept rows hashed:
+
+      - integer ALU (xor, shift, funnel shift, add), per kept row and
+        component with L lanes: the key half's rotate per lane (L); per
+        seed the state half's xor and rotate per lane (2L), fmix32 of
+        ``h ^ L`` (6: the ``^ L`` shares one three-input xor with the
+        first xor-shift, since L < 2**16), the id's state half (2) and
+        fmix32 (6); 1 per active row to mask the has byte.  Per row: alive
+        and not pending, and the count (2); the id's rotate (1) if any
+        component keeps the row;
+      - FMA pipe (IMUL, IMAD), per kept row and component: the key half's
+        two multiplies per lane (2L); per seed the state half's
+        multiply-add per lane (L), fmix32's two multiplies twice (4), the
+        id's state half (1) and the masked add into the sum, one
+        multiply-add ``h * keep + sum`` (1).  Per row kept by any
+        component: the id's two multiplies (2);
+      - issue: both together, at 128 per clock per SM.
+
+      Per frame: the tag and fmix32 of each part, the XOR across parts and
+      the entity part, on the same pipes.
+
+    Each count is over its rate; the largest time is the bound."""
+    lanes, has, ids, alive, pending, _, _, _ = args
     k, n = ids.shape
     active = alive & ~pending
-    nbytes = k * n + int(alive.sum()) + k * len(lanes) * 2 * 4
-    ops = 0
+    n_comps = len(lanes)
+    n_active = int(active.sum())
+    nbytes = k * n + int(alive.sum()) + k * 4 + k * (1 + n_comps) * 2 * 8
+    alu = 2 * k * n + k * 2 * (8 * n_comps + 13)
+    fma = k * 2 * (2 * n_comps + 8)
     any_keep = torch.zeros_like(alive)
     for ln, hs in zip(lanes, has):
         keep = active & hs
         n_keep = int(keep.sum())
         n_lanes = ln.shape[2]
-        nbytes += int(active.sum()) + n_keep * n_lanes * 4
-        # per seed: (L + 1) mix32 rounds of 6 ops, 2 fmix32 of 8, 2 more
-        ops += n_keep * 2 * (6 * (n_lanes + 1) + 16 + 2)
+        nbytes += n_active + n_keep * n_lanes * 4
+        alu += n_active + n_keep * (5 * n_lanes + 28)
+        fma += n_keep * (4 * n_lanes + 12)
         any_keep |= keep
-    nbytes += int(any_keep.sum()) * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / SCALAR32_OPS_PER_S * 1e3
-    return {"bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    n_any = int(any_keep.sum())
+    nbytes += n_any * 4
+    alu += n_any
+    fma += 2 * n_any
+    clocks = sm_clocks_per_s()
+    times = {
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "alu_ms": alu / (ALU_OPS_PER_CLOCK_PER_SM * clocks) * 1e3,
+        "fma_pipe_ms": fma / (FMA_PIPE_OPS_PER_CLOCK_PER_SM * clocks) * 1e3,
+        "issue_ms": (alu + fma) / (ISSUE_OPS_PER_CLOCK_PER_SM * clocks) * 1e3,
+    }
+    bound_ms = max(times.values())
+    return {"bytes": nbytes, "alu_ops": alu, "fma_pipe_ops": fma,
+            "sm_clocks_per_s": clocks, **times, "bound_ms": bound_ms,
+            "bound_term": max(times, key=times.get),
+            "bound_by": "bytes" if times["bytes_ms"] >= bound_ms else "operations"}
+
+
+def device_profile(fn, calls: int) -> dict:
+    """Device events per call of ``fn`` from a ``torch.profiler`` trace:
+    kernels and copies by name, device ms, and the host ms per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / calls
+        torch.cuda.synchronize()
+    events = {}
+    device_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = next((float(getattr(e, a)) for a in ("self_device_time_total",
+                                                   "self_cuda_time_total")
+                   if hasattr(e, a)), 0.0)
+        events[e.key[:80]] = {"per_call": e.count / calls, "ms_per_call": us / 1e3 / calls}
+        device_us += us
+    return {"events": events, "device_ms_per_call": device_us / 1e3 / calls,
+            "host_ms_per_call": host_ms,
+            "device_events_per_call": sum(v["per_call"] for v in events.values()),
+            "htod_copies_per_call": sum(v["per_call"] for n, v in events.items()
+                                        if "HtoD" in n),
+            "profiler_saw_device": bool(events)}
 
 
 def stacked_of(app, world, k: int):
@@ -166,55 +288,95 @@ def phase_build() -> None:
     checksum_fold._library()
     log = lib.with_suffix(".log")
     emit("build", seconds=time.perf_counter() - t0, library=lib.name,
-         ptxas=log.read_text().strip().splitlines()[-4:] if log.exists() else [])
+         ptxas=[ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
+                if "Function properties" in ln or "registers" in ln or "spill" in ln])
 
 
-def phase_kernel(dev) -> dict:
-    """Kernel against plain, bit for bit, on every case; times at the bench
-    shape (the main path's)."""
+def kernel_cases(dev) -> dict:
+    """name -> (registry, stacked world) for every case the kernel is held to."""
     from bevy_ggrs_tpu_torch import App
     from bevy_ggrs_tpu_torch.models import box_game, fixed_point, stress_soa
-    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
     from bevy_ggrs_tpu_torch.snapshot import despawn_where, spawn_many
+    from bevy_ggrs_tpu_torch.utils.tree import tree_map
 
     n_bench, k = SIZES["bench_entities"], SIZES["bench_k"]
     n_small = SIZES["dtype_entities"]
     gen = torch.Generator(device="cpu").manual_seed(11)
+    rng = np.random.default_rng(3)
 
     def with_despawns(app, w, frac):
         kill = (torch.rand(app.reg.capacity, generator=gen) < frac).to(dev)
         return despawn_where(app.reg, w, kill, 0)
 
+    def frames(stacked, lo, hi):
+        return tree_map(lambda a: a[lo:hi], stacked)
+
+    def columns_app(n, specs):
+        """An App with identity step and columns ``name -> (shape, dtype,
+        hash_fn)``, seeded values, a tenth of its rows despawned."""
+        app = App(capacity=n, device=dev)
+        cols = {}
+        for name, (shape, dtype, hash_fn) in specs.items():
+            app.rollback_component(name, shape, dtype, checksum=True, hash_fn=hash_fn)
+            size = (n, *shape)
+            if dtype == torch.bool:
+                cols[name] = rng.integers(0, 2, size).astype(bool)
+            elif dtype.is_floating_point:
+                cols[name] = torch.from_numpy(
+                    rng.standard_normal(size).astype(np.float32)).to(dtype)
+            else:
+                cols[name] = rng.integers(-2**31, 2**31, size, dtype=np.int64).astype(
+                    np.int64 if dtype == torch.int64 else np.int32)
+        app.set_step(lambda w, ctx: w)
+        world = spawn_many(app.reg, app.init_state(), cols, n - 100)
+        return app, with_despawns(app, world, 0.1)
+
     cases = {}
     bench_app = stress_soa.make_app(n_entities=n_bench, device=dev)
     bench_world = bench_app.init_state()
-    cases["stress_soa_1M_k8"] = (bench_app.reg, stacked_of(bench_app, bench_world, k))
+    bench = stacked_of(bench_app, bench_world, k)
+    cases["stress_soa_1M_k8"] = (bench_app.reg, bench)
     cases["stress_soa_1M_k8_despawned"] = (
-        bench_app.reg,
-        stacked_of(bench_app, with_despawns(bench_app, bench_world, 0.1), k),
-    )
+        bench_app.reg, stacked_of(bench_app, with_despawns(bench_app, bench_world, 0.1), k))
+    cases["stress_soa_1M_frames_3_to_7"] = (bench_app.reg, frames(bench, 3, 7))
     for name, mod in (("box_game", box_game), ("fixed_point", fixed_point)):
         app = mod.make_app(num_players=4, capacity=64, device=dev)
         cases[f"{name}_k8"] = (app.reg, stacked_of(app, app.init_state(), k))
-    dt_app = App(capacity=n_small, device=dev)
-    rng = np.random.default_rng(3)
-    cols = {
-        "flag": rng.integers(0, 2, n_small).astype(bool),
-        "half": torch.from_numpy(rng.standard_normal((n_small, 3)).astype(np.float32))
-        .to(torch.bfloat16),
-        "big": rng.integers(-2**62, 2**62, (n_small, 2), dtype=np.int64),
-    }
-    dt_app.rollback_component("flag", (), torch.bool, checksum=True)
-    dt_app.rollback_component("half", (3,), torch.bfloat16, checksum=True)
-    dt_app.rollback_component("big", (2,), torch.int64, checksum=True)
-    dt_app.set_step(lambda w, ctx: w)
-    dt_world = spawn_many(dt_app.reg, dt_app.init_state(), cols, n_small - 100)
-    cases["bool_bf16_int64"] = (
-        dt_app.reg, stacked_of(dt_app, with_despawns(dt_app, dt_world, 0.2), k))
+    app, world = columns_app(n_small, {"flag": ((), torch.bool, None),
+                                       "half": ((3,), torch.bfloat16, None),
+                                       "big": ((2,), torch.int64, None)})
+    cases["bool_bf16_int64"] = (app.reg, stacked_of(app, world, k))
+    ragged = stress_soa.make_app(n_entities=SIZES["ragged_entities"], device=dev)
+    ragged_stack = stacked_of(ragged, with_despawns(ragged, ragged.init_state(), 0.1), k)
+    cases["ragged_100003_k8"] = (ragged.reg, ragged_stack)
+    cases["ragged_100003_frames_1_to_6"] = (ragged.reg, frames(ragged_stack, 1, 6))
+    cases["ragged_100003_frame_5"] = (ragged.reg, frames(ragged_stack, 5, 6))
+    n_comps = SIZES["many_comps"]
+    app, world = columns_app(n_small, {
+        f"c{i}": ([(), (2,), (3,), (4,)][i % 4], torch.float32 if i % 2 else torch.int32,
+                  None) for i in range(n_comps)})
+    cases[f"{n_comps}_components_k8"] = (app.reg, stacked_of(app, world, k))
+    small = stress_soa.make_app(n_entities=n_small, device=dev)
+    small_world = with_despawns(small, small.init_state(), 0.1)
+    for depth in (1, 17):
+        cases[f"stress_soa_100k_k{depth}"] = (small.reg, stacked_of(small, small_world, depth))
+    app, world = columns_app(n_small, {"hp": ((), torch.int32, lambda col: col * 31 + 5),
+                                       "pos": ((2,), torch.float32, None)})
+    cases["custom_hash_fn"] = (app.reg, stacked_of(app, world, k))
+    none = stress_soa.make_app(n_entities=n_small, checksum=False, device=dev)
+    cases["no_checksummed_component"] = (
+        none.reg, stacked_of(none, with_despawns(none, none.init_state(), 0.1), k))
+    return cases
 
+
+def phase_kernel(dev) -> dict:
+    """Kernel against plain, bit for bit, on every case; times at the bench
+    shape (the main path's)."""
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    cases = kernel_cases(dev)
     max_err = 0
     checked = {}
-    cf.launches = 0
     for name, (reg, stacked) in cases.items():
         args = fold_inputs(reg, stacked)
         got = cf.checksum_fold(*args)
@@ -223,20 +385,99 @@ def phase_kernel(dev) -> dict:
         err = int((got - want).abs().max())
         max_err = max(max_err, err)
         checked[name] = {"shape": list(args[2].shape), "comps": len(args[0]),
+                         "vector_loads": cf.vector_loads(
+                             args[2].shape[1], [args[2], args[3], args[4], *args[0], *args[1]]),
                          "max_abs_err": err}
-        if err != 0:
+        if tuple(got.shape) != tuple(want.shape) or err != 0:
             raise SystemExit(f"chip_smoke: checksum_fold disagrees with its plain "
                              f"version on {name} (max abs err {err})")
-    bench_args = fold_inputs(bench_app.reg, cases["stress_soa_1M_k8"][1])
+    bench_reg, bench = cases["stress_soa_1M_k8"]
+    bench_args = fold_inputs(bench_reg, bench)
     ms = time_ms(lambda: cf.checksum_fold(*bench_args), SIZES["kernel_reps"])
+    back_to_back_ms = run_ms(lambda: cf.checksum_fold(*bench_args), SIZES["kernel_reps"])
     plain_ms = time_ms(lambda: cf.checksum_fold_plain(*bench_args), SIZES["kernel_reps"])
+    prof = device_profile(lambda: cf.checksum_fold(*bench_args), SIZES["profile_calls"])
     bound = fold_bound(bench_args)
-    result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bound}
+    alone_ms = prof["device_ms_per_call"]
+    result = {"max_abs_err": max_err, "ms": ms, "back_to_back_ms": back_to_back_ms,
+              "plain_ms": plain_ms, **bound}
     emit("kernel", name="checksum_fold", tolerance="bit-exact (0)", cases=checked,
          at="stress_soa 1M x k=8, 6 f32 columns", **result,
-         bound_us=bound["bound_ms"] * 1e3, kernel_launches=cf.launches,
+         bound_us=bound["bound_ms"] * 1e3,
+         kernels_alone_ms=alone_ms, kernel_events=prof["events"],
          achieved_gb_s=bound["bytes"] / (ms * 1e-3) / 1e9,
-         roofline_share=bound["bound_ms"] / ms)
+         achieved_alu_ops_per_s=bound["alu_ops"] / (ms * 1e-3),
+         roofline_share=bound["bound_ms"] / ms,
+         roofline_share_back_to_back=bound["bound_ms"] / back_to_back_ms,
+         roofline_share_kernels_alone=bound["bound_ms"] / alone_ms if alone_ms else None)
+    return result
+
+
+def phase_capture(dev) -> dict:
+    """The checksum pass at 1M x k=8: no host sync, safe in a CUDA graph,
+    and its device kernels and host-to-device copies per call."""
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.snapshot import world_checksums
+
+    app = stress_soa.make_app(n_entities=SIZES["bench_entities"], device=dev)
+    stacked = stacked_of(app, app.init_state(), SIZES["bench_k"])
+    reg = app.reg
+    world_checksums(reg, stacked)
+    sync(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        world_checksums(reg, stacked)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync(dev)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        world_checksums(reg, stacked)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    cf.launches = 0
+    with torch.cuda.graph(graph):
+        captured = world_checksums(reg, stacked)
+    capture_launches = cf.launches
+    graph.replay()
+    sync(dev)
+    before = captured.clone()
+    with torch.no_grad():
+        stacked.comps["x"].add_(1.0)
+        stacked.despawn_pending[:, ::7] = True
+        stacked.next_id.add_(3)
+    graph.replay()
+    eager = world_checksums(reg, stacked)
+    sync(dev)
+    if not torch.equal(captured, eager):
+        raise SystemExit("chip_smoke: the captured checksum pass disagrees with an "
+                         "eager call after replay")
+    if torch.equal(captured, before):
+        raise SystemExit("chip_smoke: the replayed checksum pass did not see the "
+                         "changed world")
+    if capture_launches != 1:
+        raise SystemExit(f"chip_smoke: capture launched the fold {capture_launches} "
+                         "times, not once")
+    pass_ms = time_ms(lambda: world_checksums(reg, stacked), SIZES["kernel_reps"])
+    pass_run_ms = run_ms(lambda: world_checksums(reg, stacked), SIZES["kernel_reps"])
+    prof = device_profile(lambda: world_checksums(reg, stacked), SIZES["profile_calls"])
+    if prof["profiler_saw_device"]:
+        if prof["htod_copies_per_call"] != 0:
+            raise SystemExit(f"chip_smoke: the checksum pass copies to the device: "
+                             f"{prof['events']}")
+        if prof["device_events_per_call"] > 2:
+            raise SystemExit(f"chip_smoke: the checksum pass runs more than 2 device "
+                             f"kernels per call: {prof['events']}")
+    result = {"sync_debug_error_mode": "no sync", "graph_replay_bit_exact": True,
+              "checksum_pass_ms": pass_ms, "checksum_pass_back_to_back_ms": pass_run_ms,
+              **prof}
+    if not prof["profiler_saw_device"]:
+        result["note"] = ("the profiler gave no device events; host_ms_per_call is "
+                          "the call's host time")
+    emit("capture", at="stress_soa 1M x k=8", **result)
     return result
 
 
@@ -370,6 +611,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     kernel = phase_kernel(dev)
+    phase_capture(dev)
     launches = phase_resim(dev)
     phase_parity(dev)
     phase_synctest(dev)
@@ -381,6 +623,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
+        "back_to_back_ms": kernel["back_to_back_ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"],

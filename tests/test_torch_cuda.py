@@ -1,5 +1,7 @@
-"""Card-only tests of the PyTorch port: the checksum fold kernel against its
-plain version on every lane dtype, and the entry points' CUDA default.
+"""Card-only tests of the PyTorch port: the checksum pass kernel against its
+plain version on every lane dtype, ragged and unaligned stacks, many
+components and frame counts; the pass with no host sync and inside a CUDA
+graph; and the entry points' CUDA default.
 
 Marked ``cuda``; each skips without a card.  This file imports neither JAX
 nor the JAX package, so it runs on a machine without JAX:
@@ -15,6 +17,7 @@ from bevy_ggrs_tpu_torch import App, GgrsRunner, SessionBuilder
 from bevy_ggrs_tpu_torch.models import fixed_point, stress_soa
 from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
 from bevy_ggrs_tpu_torch.snapshot import (
+    WorldState,
     despawn_where,
     fold_inputs,
     remove_component,
@@ -48,8 +51,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _values(rng, dtype, shape):
-    size = (N, *shape)
+def _values(rng, dtype, shape, rows=N):
+    size = (rows, *shape)
     if dtype == torch.bool:
         return torch.from_numpy(rng.integers(0, 2, size).astype(bool))
     if dtype.is_floating_point:
@@ -59,28 +62,73 @@ def _values(rng, dtype, shape):
     return torch.from_numpy(rng.integers(lo, hi, size, dtype=np.int64)).to(dtype)
 
 
-def _stacked(app, dev, seed):
-    """A [K, N] stack of worlds with despawned and has-false rows."""
+def _stacked(app, dev, seed, k=K):
+    """A [k, rows] stack of worlds with despawned and has-false rows."""
     rng = np.random.default_rng(seed)
-    cols = {n: _values(rng, s.dtype, s.shape) for n, s in app.reg.components.items()}
-    w = spawn_many(app.reg, app.init_state(), cols, N - 50)
-    w = despawn_where(app.reg, w, torch.from_numpy(rng.random(N) < 0.1).to(dev), 0)
-    for slot in rng.integers(0, N - 50, 20):
+    rows = app.reg.capacity
+    cols = {n: _values(rng, s.dtype, s.shape, rows) for n, s in app.reg.components.items()}
+    w = spawn_many(app.reg, app.init_state(), cols, rows - 50)
+    w = despawn_where(app.reg, w, torch.from_numpy(rng.random(rows) < 0.1).to(dev), 0)
+    for slot in rng.integers(0, rows - 50, 20):
         w = remove_component(app.reg, w, int(slot), next(iter(app.reg.components)))
-    inputs = np.zeros((K, 2), np.uint8)
-    return app.resim_fn(w, inputs, np.zeros((K, 2), np.int8), 0)[1]
+    inputs = np.zeros((k, 2), np.uint8)
+    return app.resim_fn(w, inputs, np.zeros((k, 2), np.int8), 0)[1]
 
 
-@pytest.mark.parametrize("name", sorted(DTYPES))
-def test_fold_kernel_equals_plain(cuda, name):
+def _dtype_args(name, dev):
+    """checksum_fold arguments of one lane dtype beside a custom-hashed column."""
     dtype, shape = DTYPES[name]
-    app = App(capacity=N, device=cuda)
+    app = App(capacity=N, device=dev)
     app.rollback_component("c", shape, dtype, checksum=True)
     app.rollback_component("h", (), torch.int32, checksum=True,
                            hash_fn=lambda col: col * 7 + 1)
     app.set_step(lambda w, ctx: w)
-    stacked = _stacked(app, cuda, seed=len(name))
-    args = fold_inputs(app.reg, stacked, ["c", "h"], seeds=(1, 2))
+    stacked = _stacked(app, dev, seed=len(name))
+    return fold_inputs(app.reg, stacked, ["c", "h"], seeds=(1, 2))
+
+
+def _layout_args(name, dev):
+    """checksum_fold arguments of one stack shape or memory layout."""
+    if name in ("ragged_n", "ragged_frame_slice"):
+        app = stress_soa.make_app(n_entities=N + 3, device=dev)
+        stacked = _stacked(app, dev, seed=1)
+        if name == "ragged_frame_slice":
+            stacked = WorldState(**{f: _frames(v, 1, 3) for f, v in vars(stacked).items()})
+    elif name == "aligned_frame_slice":
+        app = stress_soa.make_app(n_entities=4096, device=dev)
+        stacked = _stacked(app, dev, seed=2)
+        stacked = WorldState(**{f: _frames(v, 1, 3) for f, v in vars(stacked).items()})
+    elif name == "20_components":
+        app = App(capacity=N, device=dev)
+        for i in range(20):
+            app.rollback_component(f"c{i}", [(), (2,), (3,)][i % 3],
+                                   torch.float32 if i % 2 else torch.int32, checksum=True)
+        app.set_step(lambda w, ctx: w)
+        stacked = _stacked(app, dev, seed=3)
+    elif name in ("k1", "k17"):
+        app = stress_soa.make_app(n_entities=N, device=dev)
+        stacked = _stacked(app, dev, seed=4, k=int(name[1:]))
+    else:
+        assert name == "no_checksummed_component"
+        app = stress_soa.make_app(n_entities=N, checksum=False, device=dev)
+        stacked = _stacked(app, dev, seed=5)
+    names = [n for n, s in app.reg.components.items() if s.checksum]
+    return fold_inputs(app.reg, stacked, names)
+
+
+def _frames(v, lo, hi):
+    if isinstance(v, torch.Tensor):
+        return v[lo:hi]
+    return {n: _frames(t, lo, hi) for n, t in v.items()}
+
+
+LAYOUTS = ["ragged_n", "ragged_frame_slice", "aligned_frame_slice", "20_components",
+           "k1", "k17", "no_checksummed_component"]
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES) + LAYOUTS)
+def test_fold_kernel_equals_plain(cuda, name):
+    args = _dtype_args(name, cuda) if name in DTYPES else _layout_args(name, cuda)
     before = cf.launches
     got = cf.checksum_fold(*args)
     torch.cuda.synchronize()
@@ -115,3 +163,39 @@ def test_runner_launches_the_kernel(cuda):
 def test_entry_points_default_to_cuda(cuda):
     assert App().device.type == "cuda"
     assert fixed_point.make_app().init_state().device.type == "cuda"
+
+
+def test_world_checksums_make_no_host_sync(cuda):
+    app = stress_soa.make_app(n_entities=N, device=cuda)
+    stacked = _stacked(app, cuda, seed=6)
+    want = world_checksums(app.reg, stacked)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = world_checksums(app.reg, stacked)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+
+
+def test_world_checksums_replay_in_a_cuda_graph_bit_exact(cuda):
+    app = stress_soa.make_app(n_entities=N, device=cuda)
+    stacked = _stacked(app, cuda, seed=7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        world_checksums(app.reg, stacked)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = world_checksums(app.reg, stacked)
+    graph.replay()
+    torch.cuda.synchronize()
+    before = captured.clone()
+    stacked.comps["vx"].mul_(-2.0)
+    stacked.despawn_pending[:, ::5] = True
+    stacked.next_id.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, world_checksums(app.reg, stacked))
+    assert not torch.equal(captured, before)
