@@ -3,7 +3,10 @@
 GGPO-style rollback netcode for deterministic simulations whose state is
 columnar SoA tensors on an NVIDIA GPU.  A rollback of N frames is one
 resim call returning every intermediate state and checksum; the checksum
-fold is a CUDA kernel written for Hopper (``csrc/checksum_fold.cu``).
+fold is a CUDA kernel written for Hopper (``csrc/checksum_fold.cu``).  The
+session/network layer (input queues, prediction, sync/quality/desync
+protocol, UDP transport) runs on the host, in Python or in the native C++
+core.
 
 The module layout and names mirror the JAX package, which stays the
 reference.  This package imports torch, never JAX, and nothing of
@@ -13,8 +16,34 @@ reference.  This package imports torch, never JAX, and nothing of
 
 from .app import App
 from .runner import GgrsRunner
-from .session.builder import SessionBuilder
-from .session.events import InputStatus
-from .session.synctest import SyncTestSession
+from .session import (
+    DesyncDetection,
+    GgrsError,
+    InputStatus,
+    InvalidRequestError,
+    MismatchedChecksumError,
+    NativeP2PSession,
+    NativeSpectatorSession,
+    NetworkStats,
+    NotSynchronizedError,
+    P2PSession,
+    Player,
+    PlayerType,
+    PredictionThresholdError,
+    SessionBuilder,
+    SessionState,
+    SpectatorSession,
+    SyncTestSession,
+    TcpNonBlockingSocket,
+    UdpNonBlockingSocket,
+)
+from .utils.frames import NULL_FRAME
 
-__all__ = ["App", "GgrsRunner", "SessionBuilder", "SyncTestSession", "InputStatus"]
+__all__ = [
+    "App", "GgrsRunner", "SessionBuilder", "SyncTestSession", "P2PSession",
+    "SpectatorSession", "NativeP2PSession", "NativeSpectatorSession",
+    "UdpNonBlockingSocket", "TcpNonBlockingSocket",
+    "InputStatus", "SessionState", "PlayerType", "Player", "DesyncDetection",
+    "GgrsError", "PredictionThresholdError", "MismatchedChecksumError",
+    "NotSynchronizedError", "InvalidRequestError", "NetworkStats", "NULL_FRAME",
+]

@@ -1,13 +1,69 @@
-"""Sessions for this slice: SyncTest and its builder (port of
-``bevy_ggrs_tpu/session``)."""
+"""Sessions: SyncTest, P2P (Python and native core), spectator, their
+builder, the wire protocol and transports (port of
+``bevy_ggrs_tpu/session``).  Not ported yet: the room server and replay."""
 
-from .builder import SessionBuilder
-from .events import InputStatus, InvalidRequestError, MismatchedChecksumError
-from .requests import AdvanceRequest, GgrsRequest, LoadRequest, SaveCell, SaveRequest
+from .events import (
+    InputStatus,
+    SessionState,
+    PlayerType,
+    Player,
+    DesyncDetection,
+    Synchronizing,
+    Synchronized,
+    Disconnected,
+    NetworkInterrupted,
+    NetworkResumed,
+    DesyncDetected,
+    GgrsError,
+    PredictionThresholdError,
+    MismatchedChecksumError,
+    NotSynchronizedError,
+    InvalidRequestError,
+    NetworkStats,
+)
+from .requests import SaveRequest, LoadRequest, AdvanceRequest, SaveCell, GgrsRequest
 from .synctest import SyncTestSession
+from .input_queue import InputQueue
+from .time_sync import TimeSync
+from .transport import TcpNonBlockingSocket, UdpNonBlockingSocket, NonBlockingSocket
+from .p2p import P2PSession
+from .spectator import SpectatorSession
+from .builder import SessionBuilder
+from .native import NativeP2PSession, NativeSpectatorSession, native_available
 
 __all__ = [
-    "SessionBuilder", "SyncTestSession", "InputStatus", "InvalidRequestError",
-    "MismatchedChecksumError", "AdvanceRequest", "GgrsRequest", "LoadRequest",
-    "SaveCell", "SaveRequest",
+    "InputStatus",
+    "SessionState",
+    "PlayerType",
+    "Player",
+    "DesyncDetection",
+    "Synchronizing",
+    "Synchronized",
+    "Disconnected",
+    "NetworkInterrupted",
+    "NetworkResumed",
+    "DesyncDetected",
+    "GgrsError",
+    "PredictionThresholdError",
+    "MismatchedChecksumError",
+    "NotSynchronizedError",
+    "InvalidRequestError",
+    "NetworkStats",
+    "SaveRequest",
+    "LoadRequest",
+    "AdvanceRequest",
+    "SaveCell",
+    "GgrsRequest",
+    "SyncTestSession",
+    "InputQueue",
+    "TimeSync",
+    "UdpNonBlockingSocket",
+    "TcpNonBlockingSocket",
+    "NonBlockingSocket",
+    "P2PSession",
+    "SpectatorSession",
+    "SessionBuilder",
+    "NativeP2PSession",
+    "NativeSpectatorSession",
+    "native_available",
 ]

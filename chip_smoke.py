@@ -8,14 +8,20 @@ and no result.  The phases:
 
 1. device   — the card's name and power limit (``nvidia-smi``); fails
                without CUDA;
-2. build    — compiles ``csrc/checksum_fold.cu`` for sm_90a (timed);
+2. build    — compiles ``csrc/checksum_fold.cu`` for sm_90a and the native
+               session core ``native/ggrs_core/ggrs_core.cc`` side by side
+               (timed);
 3. kernel   — the checksum pass kernel against its plain torch version on
                the card, bit for bit: stress_soa 1M entities x k=8 with
                and without despawned rows, a frame slice of it, box_game /
                fixed_point worlds (L=2, int32), bool / bf16 / int64
                columns, ragged N (100,003) and a frame slice of it (an
                unaligned storage offset), 20 components, k=1 and k=17, a
-               custom hash and no checksummed component; kernel and plain
+               custom hash and no checksummed component, and the P2P
+               paths' shapes: stress_soa 1M and the 2-player box_game /
+               fixed_point worlds at k=1 (a tick) and k=2 / k=3 (a
+               rollback at input delay 0 / 1);
+               kernel and plain
                times, the bound (bytes over HBM; integer operations per
                pipe, ALU and FMA, and their issue, over the card's rates);
 4. capture  — ``world_checksums`` at 1M x k=8 under
@@ -32,21 +38,50 @@ and no result.  The phases:
 7. synctest — ``GgrsRunner`` + ``SyncTestSession`` at check_distance 7 with
                flipping inputs: box_game and fixed_point for 600 frames,
                stress_soa at 100k entities for 120 frames; zero mismatches;
-8. result   — the kernels line, the card line, then
+8. p2p      — pairs of port runners with ``P2PSession``s over a
+               ``ChannelNetwork`` (3 hops, no loss), input delay 1,
+               prediction window 8, checksums compared every frame; peer
+               0's inputs flip every 7 frames, so peer 1 rolls back again
+               and again: stress_soa at 1M entities, box_game and
+               fixed_point, 240 frames each; per pair frames/s per peer,
+               rollbacks and their depth, fold launches against resim
+               calls (equal), checksum peeks that found nothing and forced
+               readbacks, stalls, zero ``DesyncDetected``, equal confirmed
+               checksums; the first stacked output of each resim depth the
+               pair ran is held against the plain fold bit for bit; then a
+               box_game pair whose peer 0 gets its
+               ``pos`` offset must raise ``DesyncDetected`` within 60
+               frames, and fixed_point's confirmed checksums on the card
+               must equal the same pair's on the CPU;
+9. spectator — a box_game host pair streaming to a port
+               ``SpectatorSession``: it reaches RUNNING and its checksum
+               at each frame equals the host's confirmed checksum there;
+10. native  — a port ``NativeP2PSession`` peer against a port
+               ``P2PSession`` peer, fixed_point on the card, over loopback
+               UDP at input delay 0: the native peer steps first on a
+               clock 10% fast, so it predicts the Python peer's flipping
+               input and rolls back;
+               both RUNNING, 120 frames, zero desyncs, equal confirmed
+               checksums;
+11. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Kernel launch counts are reset just before each driven path and read just
 after it; a path that did not launch the kernel fails.  Launches made to
-compare the kernel with its plain version are not counted.
+compare the kernel with its plain version are not counted.  The session
+phases (8 to 10) also hold the fold's output on the stacks their resims
+produced against the plain version, after the counts are read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -83,6 +118,15 @@ SIZES = {
     "kernel_reps": 25,
     "resim_reps": 5,
     "resim_iters": 10,
+    "p2p_frames": 240,
+    "p2p_stress_entities": 1_000_000,
+    "p2p_latency_hops": 3,
+    "p2p_flip_frames": 7,
+    "desync_offset_frame": 60,
+    "desync_window": 60,
+    "p2p_cpu_parity_frame": 200,
+    "spectator_frames": 240,
+    "native_frames": 120,
 }
 
 
@@ -281,13 +325,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """nvcc for the fold and g++ for the session core, started together."""
     from bevy_ggrs_tpu_torch.ops import checksum_fold
+    from bevy_ggrs_tpu_torch.session import native
 
     t0 = time.perf_counter()
-    lib = checksum_fold.build_library()
+    with ThreadPoolExecutor(2) as pool:
+        fold = pool.submit(checksum_fold.build_library)
+        core = pool.submit(native.build_library)
+        lib, core_lib = fold.result(), core.result()
     checksum_fold._library()
+    native.load_library()
     log = lib.with_suffix(".log")
     emit("build", seconds=time.perf_counter() - t0, library=lib.name,
+         native_library=core_lib.name,
          ptxas=[ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
                 if "Function properties" in ln or "registers" in ln or "spill" in ln])
 
@@ -339,9 +390,16 @@ def kernel_cases(dev) -> dict:
     cases["stress_soa_1M_k8_despawned"] = (
         bench_app.reg, stacked_of(bench_app, with_despawns(bench_app, bench_world, 0.1), k))
     cases["stress_soa_1M_frames_3_to_7"] = (bench_app.reg, frames(bench, 3, 7))
+    for depth in (1, 3):  # a P2P tick and a rollback
+        cases[f"stress_soa_1M_k{depth}"] = (bench_app.reg,
+                                            stacked_of(bench_app, bench_world, depth))
     for name, mod in (("box_game", box_game), ("fixed_point", fixed_point)):
         app = mod.make_app(num_players=4, capacity=64, device=dev)
         cases[f"{name}_k8"] = (app.reg, stacked_of(app, app.init_state(), k))
+        pair_app = mod.make_app(device=dev)  # the P2P pairs' 2-player world
+        for depth in (1, 2, 3):
+            cases[f"{name}_2p_k{depth}"] = (
+                pair_app.reg, stacked_of(pair_app, pair_app.init_state(), depth))
     app, world = columns_app(n_small, {"flag": ((), torch.bool, None),
                                        "half": ((3,), torch.bfloat16, None),
                                        "big": ((2,), torch.int64, None)})
@@ -603,6 +661,376 @@ def phase_synctest(dev) -> None:
         emit("synctest", model=name, **r)
 
 
+# -- P2P, spectator and native sessions -------------------------------------------
+
+
+def frame_inputs(i: int, holder: list):
+    """Peer ``i``'s inputs as a function of the frame: peer 0 flips between
+    right and up every ``p2p_flip_frames`` frames, peer 1 holds right, so
+    peer 1 mispredicts peer 0 and rolls back."""
+    flip = SIZES["p2p_flip_frames"]
+
+    def read_inputs(handles):
+        on = i == 1 or (holder[0].frame // flip) % 2 == 0
+        return {h: np.uint8(8 if on else 1) for h in handles}
+
+    return read_inputs
+
+
+def record_confirmed(runner) -> dict:
+    """``frame -> checksum ref`` of each frame ``runner`` confirms, read
+    from its ring when the frame confirms (forced later, off the clock)."""
+    seen = {}
+
+    def on_confirmed(frame):
+        entry = runner.ring.peek(frame)
+        if entry is not None:
+            seen.setdefault(frame, entry[1])
+
+    runner.on_confirmed = on_confirmed
+    return seen
+
+
+def p2p_peer(make_app, i: int, socket, peer_addr, native_port=None, spectator=None,
+             input_delay: int = 1):
+    """One peer of a 2-player game (prediction window 8, checksums compared
+    every frame); ``native_port`` makes it a native core session bound to
+    that UDP port, ``spectator`` an address it streams confirmed inputs
+    to."""
+    from bevy_ggrs_tpu_torch import DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
+
+    app = make_app()
+    b = (SessionBuilder.for_app(app).with_input_delay(input_delay)
+         .with_max_prediction_window(8)
+         .with_desync_detection_mode(DesyncDetection.on(1))
+         .add_player(PlayerType.LOCAL, i).add_player(PlayerType.REMOTE, 1 - i, peer_addr))
+    if spectator is not None:
+        b.add_player(PlayerType.SPECTATOR, 2, spectator)
+    if native_port is None:
+        session = b.start_p2p_session(socket)
+    else:
+        session = b.start_p2p_session_native(local_port=native_port)
+    holder = []
+    runner = GgrsRunner(app, session, read_inputs=frame_inputs(i, holder))
+    holder.append(runner)
+    return runner
+
+
+def sync_sessions(runners, net=None, sleep_s: float = 0.0) -> None:
+    """Poll until every session is RUNNING (no frames advance)."""
+    for _ in range(5000):
+        if net is not None:
+            net.deliver()
+        for r in runners:
+            r.update(0.0)
+        if all(r.session.current_state().value == "running" for r in runners):
+            return
+        if sleep_s:
+            time.sleep(sleep_s)
+    raise SystemExit("chip_smoke: the sessions never synchronized")
+
+
+def drive(runners, frames: int, net=None) -> None:
+    for _ in range(frames):
+        if net is not None:
+            net.deliver()
+        for r in runners:
+            r.update(1.0 / 60.0)
+
+
+def desyncs(runner) -> list:
+    from bevy_ggrs_tpu_torch.session.events import DesyncDetected
+
+    return [e for e in runner.events if isinstance(e, DesyncDetected)]
+
+
+def channel_pair(make_app, seed: int):
+    """Two port peers over a ChannelNetwork: (net, runners, confirmed refs)."""
+    from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+
+    net = ChannelNetwork(latency_hops=SIZES["p2p_latency_hops"], loss=0.0, seed=seed)
+    socks = [net.endpoint("p0"), net.endpoint("p1")]
+    runners = [p2p_peer(make_app, i, socks[i], f"p{1 - i}") for i in range(2)]
+    return net, runners, [record_confirmed(r) for r in runners]
+
+
+def keep_stacks(runners) -> dict:
+    """``k -> (registry, stacked output)`` of the first resim of each depth
+    ``k`` the runners run, kept to hold the fold against its plain version
+    on the main path's own tensors."""
+    kept = {}
+    for r in runners:
+        resim_fn, reg = r.app.resim_fn, r.app.reg
+
+        def keeping(world, inputs, status, frame, resim_fn=resim_fn, reg=reg):
+            out = resim_fn(world, inputs, status, frame)
+            kept.setdefault(len(inputs), (reg, out[1]))
+            return out
+
+        r.app.resim_fn = keeping
+    return kept
+
+
+def check_stacks(name: str, kept: dict) -> list:
+    """The fold on each kept stack, bit for bit against its plain version;
+    returns the ``[k, N]`` shapes checked.  Run after the launch count is
+    read: these launches are not the path's."""
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    shapes = []
+    for k, (reg, stacked) in sorted(kept.items()):
+        args = fold_inputs(reg, stacked)
+        got, want = cf.checksum_fold(*args), cf.checksum_fold_plain(*args)
+        if not torch.equal(got, want):
+            raise SystemExit(f"chip_smoke: {name}: checksum_fold disagrees with its "
+                             f"plain version on the path's k={k} resim output")
+        shapes.append(list(args[2].shape))
+    if not shapes:
+        raise SystemExit(f"chip_smoke: {name}: no resim output to check")
+    return shapes
+
+
+def agreed_checksums(seen: list) -> dict:
+    """The confirmed checksums every recorder holds, as ints; fails if two
+    recorders disagree at a frame."""
+    shared = sorted(set.intersection(*(set(s) for s in seen)))
+    out = {}
+    for f in shared:
+        vals = {s[f]() for s in seen}
+        if len(vals) != 1:
+            raise SystemExit(f"chip_smoke: peers' confirmed checksums differ at frame {f}")
+        out[f] = vals.pop()
+    return out
+
+
+def p2p_run(name: str, make_app, dev, seed: int) -> dict:
+    """One pair for ``p2p_frames`` frames after sync; the fold must launch
+    once per resim, the peers must roll back, stay in sync and agree."""
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    net, runners, seen = channel_pair(make_app, seed)
+    sync_sessions(runners, net)
+    kept = keep_stacks(runners)
+    frames = SIZES["p2p_frames"]
+    sync(dev)
+    cf.launches = 0
+    t0 = time.perf_counter()
+    drive(runners, frames, net)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = cf.launches
+    resims = sum(r.resims for r in runners)
+    reads = [dataclasses.asdict(r.readbacks) for r in runners]
+    for r in runners:
+        r.finish()
+    agreed = agreed_checksums(seen)
+    stack_shapes = check_stacks(name, kept) if dev.type == "cuda" else []
+    rings = sorted(set(runners[0].ring.frames()) & set(runners[1].ring.frames()))
+    ring_equal = all(runners[0].ring.peek(f)[1]() == runners[1].ring.peek(f)[1]()
+                     for f in rings)
+    result = {
+        "pair": name, "device": str(dev), "frames": frames, "seconds": dt,
+        "frames_per_s_per_peer": [r.frame / dt for r in runners],
+        "final_frames": [r.frame for r in runners],
+        "rollbacks": [r.rollbacks for r in runners],
+        "resimulated_frames": [r.rollback_frames for r in runners],
+        "mean_rollback_depth": [r.rollback_frames / r.rollbacks if r.rollbacks else 0.0
+                                for r in runners],
+        "rollbacks_by_cause": [{str(h): n for h, n in r.rollbacks_by_cause.items()}
+                               for r in runners],
+        "resim_calls": [r.resims for r in runners], "fold_launches": launches,
+        "launches_per_resim": launches / resims if resims else None,
+        "peek_misses": [x["peek_misses"] for x in reads],
+        "forced_readbacks": [x["forced"] for x in reads],
+        "harvested_readbacks": [x["harvested"] for x in reads],
+        "stalls": [r.stalled_frames for r in runners],
+        "desyncs": [len(desyncs(r)) for r in runners],
+        "confirmed_frames_agreed": len(agreed), "ring_frames_agreed": len(rings),
+        "path_stacks_bit_exact": stack_shapes,
+    }
+    if dev.type == "cuda" and launches != resims:
+        raise SystemExit(f"chip_smoke: {name}: {launches} fold launches for "
+                         f"{resims} resim calls")
+    if runners[1].rollbacks == 0 or max(kept) < 2 \
+            or min(r.frame for r in runners) < frames - 10:
+        raise SystemExit(f"chip_smoke: {name}: no rollbacks or a short run: {result}")
+    if any(result["desyncs"]) or not ring_equal or len(agreed) < frames // 2:
+        raise SystemExit(f"chip_smoke: {name}: peers out of sync: {result}")
+    result["agreed"] = agreed
+    return result
+
+
+def forced_desync(dev) -> dict:
+    """A box_game pair whose peer 0 gets its ``pos`` offset mid-game must
+    raise ``DesyncDetected`` within ``desync_window`` frames.  Peer 0
+    predicts its remote perfectly, so it never rolls the offset away."""
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.snapshot.lazy import wrap_single_checksum
+
+    net, runners, _ = channel_pair(lambda: box_game.make_app(device=dev), seed=3)
+    sync_sessions(runners, net)
+    drive(runners, SIZES["desync_offset_frame"], net)
+    if any(desyncs(r) for r in runners):
+        raise SystemExit("chip_smoke: DesyncDetected before the offset")
+    r0 = runners[0]
+    w = r0.world
+    r0.world = dataclasses.replace(w, comps={**w.comps, "pos": w.comps["pos"] + 0.5})
+    r0._world_checksum = wrap_single_checksum(r0.app.checksum_fn(r0.world))
+    start = r0.frame
+    while not any(desyncs(r) for r in runners):
+        if r0.frame - start >= SIZES["desync_window"]:
+            raise SystemExit("chip_smoke: no DesyncDetected within "
+                             f"{SIZES['desync_window']} frames of the offset")
+        drive(runners, 1, net)
+    first = min((e for r in runners for e in desyncs(r)), key=lambda e: e.frame)
+    return {"offset_at_frame": start, "detected_at_frame": first.frame,
+            "frames_to_detect": r0.frame - start,
+            "local_checksum": hex(first.local_checksum),
+            "remote_checksum": hex(first.remote_checksum)}
+
+
+def phase_p2p(dev) -> int:
+    """Three pairs on the card, the forced desync, and fixed_point's
+    confirmed checksums on the card against the CPU's."""
+    from bevy_ggrs_tpu_torch.models import box_game, fixed_point, stress_soa
+
+    n = SIZES["p2p_stress_entities"]
+    pairs = {
+        f"stress_soa_{n}": lambda: stress_soa.make_app(n_entities=n, device=dev),
+        "box_game": lambda: box_game.make_app(device=dev),
+        "fixed_point": lambda: fixed_point.make_app(device=dev),
+    }
+    launches = 0
+    fixed_on_card = None
+    for seed, (name, make_app) in enumerate(pairs.items()):
+        result = p2p_run(name, make_app, dev, seed)
+        launches += result["fold_launches"]
+        agreed = result.pop("agreed")
+        if name == "fixed_point":
+            fixed_on_card = agreed
+        emit("p2p", **result)
+    emit("p2p_desync", model="box_game", **forced_desync(dev))
+    cpu = p2p_run("fixed_point", lambda: fixed_point.make_app(device="cpu"),
+                  torch.device("cpu"), 2)["agreed"]
+    shared = [f for f in fixed_on_card if f in cpu and f <= SIZES["p2p_cpu_parity_frame"]]
+    if not shared:
+        raise SystemExit("chip_smoke: no confirmed fixed_point frame on both devices")
+    frame = max(shared)
+    if fixed_on_card[frame] != cpu[frame] or any(fixed_on_card[f] != cpu[f] for f in shared):
+        raise SystemExit(f"chip_smoke: fixed_point's confirmed checksum at frame {frame} "
+                         f"differs between {dev} and cpu")
+    emit("p2p_parity", model="fixed_point", frame=frame, checksum=hex(cpu[frame]),
+         frames_compared=len(shared), card_equals_cpu=True)
+    return launches
+
+
+def phase_spectator(dev) -> int:
+    """A box_game host pair streaming to a port spectator on the card."""
+    from bevy_ggrs_tpu_torch import GgrsRunner, SessionBuilder
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+
+    net = ChannelNetwork(latency_hops=SIZES["p2p_latency_hops"], loss=0.0, seed=4)
+    socks = [net.endpoint(a) for a in ("p0", "p1", "spec")]
+    hosts = [p2p_peer(lambda: box_game.make_app(device=dev), i, socks[i], f"p{1 - i}",
+                      spectator="spec" if i == 0 else None) for i in range(2)]
+    host_checks = record_confirmed(hosts[0])
+    app = box_game.make_app(device=dev)
+    spec = GgrsRunner(app, SessionBuilder.for_app(app).start_spectator_session("p0", socks[2]))
+    everyone = hosts + [spec]
+    sync_sessions(everyone, net)
+    kept = keep_stacks(everyone)
+    frames = SIZES["spectator_frames"]
+    sync(dev)
+    cf.launches = 0
+    matched = 0
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        drive(everyone, 1, net)
+        if spec.frame in host_checks:
+            if spec.checksum != host_checks[spec.frame]():
+                raise SystemExit(f"chip_smoke: the spectator's checksum at frame "
+                                 f"{spec.frame} differs from the host's")
+            matched += 1
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = cf.launches
+    resims = sum(r.resims for r in everyone)
+    if spec.session.current_state().value != "running" or spec.frame < frames - 20 \
+            or matched < frames // 2 or (dev.type == "cuda" and launches != resims):
+        raise SystemExit(f"chip_smoke: the spectator fell out of step: frame "
+                         f"{spec.frame}, {matched} frames matched, {launches} launches "
+                         f"for {resims} resims")
+    stack_shapes = check_stacks("spectator", kept)
+    emit("spectator", model="box_game", frames=frames, seconds=dt,
+         spectator_frame=spec.frame, host_frames=[h.frame for h in hosts],
+         frames_matched_host=matched, spectator_resims=spec.resims,
+         spectator_stalls=spec.stalled_frames, fold_launches=launches,
+         resim_calls=resims, desyncs=[len(desyncs(h)) for h in hosts],
+         path_stacks_bit_exact=stack_shapes)
+    return launches
+
+
+def phase_native(dev) -> int:
+    """A port native-core peer (handle 1) against a port Python peer
+    (handle 0, whose input flips) over loopback UDP at input delay 0.  The
+    native peer steps first in each tick, on a clock 10% fast that its
+    run-slow (x1.1) holds level with the Python peer, so it advances each
+    frame before the Python peer has sent that frame's input: it predicts,
+    mispredicts at each flip and serves the core's LoadRequests."""
+    from bevy_ggrs_tpu_torch import UdpNonBlockingSocket
+    from bevy_ggrs_tpu_torch.models import fixed_point
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    sock = UdpNonBlockingSocket(0, host="127.0.0.1")
+    try:
+        def make_app():
+            return fixed_point.make_app(device=dev)
+        nat = p2p_peer(make_app, 1, None, ("127.0.0.1", sock.local_addr[1]),
+                       native_port=0, input_delay=0)
+        py = p2p_peer(make_app, 0, sock, ("127.0.0.1", nat.session.local_port()),
+                      input_delay=0)
+        runners = [nat, py]
+        seen = [record_confirmed(r) for r in runners]
+        sync_sessions(runners, sleep_s=0.001)
+        kept = keep_stacks(runners)
+        frames = SIZES["native_frames"]
+        sync(dev)
+        cf.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            nat.update(1.1 / 60.0)
+            py.update(1.0 / 60.0)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        launches = cf.launches
+        resims = sum(r.resims for r in runners)
+        for r in runners:
+            r.finish()
+        agreed = agreed_checksums(seen)
+    finally:
+        sock.close()
+    if any(desyncs(r) for r in runners) or len(agreed) < frames // 2 \
+            or min(r.frame for r in runners) < frames - 10 \
+            or nat.rollbacks == 0 or set(nat.rollbacks_by_cause) != {0} \
+            or (dev.type == "cuda" and launches != resims):
+        raise SystemExit(f"chip_smoke: native pair out of sync or never rolled "
+                         f"back: frames {[r.frame for r in runners]}, rollbacks "
+                         f"{[r.rollbacks for r in runners]}, {len(agreed)} agreed, "
+                         f"{launches} launches for {resims} resims")
+    stack_shapes = check_stacks("native", kept)
+    emit("native", model="fixed_point", frames=frames, seconds=dt, input_delay=0,
+         sessions=[type(r.session).__name__ for r in runners],
+         final_frames=[r.frame for r in runners], rollbacks=[r.rollbacks for r in runners],
+         resimulated_frames=[r.rollback_frames for r in runners],
+         rollbacks_by_cause=[{str(h): n for h, n in r.rollbacks_by_cause.items()}
+                             for r in runners],
+         confirmed_frames_agreed=len(agreed), fold_launches=launches, resim_calls=resims,
+         desyncs=[len(desyncs(r)) for r in runners], path_stacks_bit_exact=stack_shapes)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -615,12 +1043,15 @@ def main() -> int:
     launches = phase_resim(dev)
     phase_parity(dev)
     phase_synctest(dev)
+    by_path = {"resim": launches, "p2p": phase_p2p(dev),
+               "spectator": phase_spectator(dev), "native": phase_native(dev)}
     print(json.dumps({"kernels": [{
         "name": "checksum_fold",
         "route": "cuda",
         "source": "bevy_ggrs_tpu_torch/csrc/checksum_fold.cu",
         "replaces": "docs/pallas_negative_result.md:63",
         "launches": launches,
+        "launches_by_path": by_path,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
         "back_to_back_ms": kernel["back_to_back_ms"],

@@ -1,26 +1,45 @@
 #!/usr/bin/env python
-"""Where a resim's time goes on the card: a torch.profiler trace of the
-PyTorch port's ``App.resim_fn`` on ``stress_soa`` (k=8).
+"""Where the PyTorch port's time goes on the card, from torch.profiler
+traces.  Two modes:
 
-Prints one JSON line: wall ms per resim call (host clock around calls that
-end in a synchronize), device-busy ms per call (the sum of the CUDA
-kernels' self time in the trace; kernels of one stream do not overlap),
-the idle share, the kernel launches per call and the wall time per launch,
-and the top kernels by device time with their calls.
+- default: ``App.resim_fn`` on ``stress_soa`` (k=8).  Prints one JSON line:
+  wall ms per resim call (host clock around calls that end in a
+  synchronize), device-busy ms per call (the sum of the CUDA kernels' self
+  time in the trace; kernels of one stream do not overlap), the idle share,
+  the kernel launches per call and the wall time per launch, and the top
+  kernels by device time with their calls.
+- ``--p2p``: a P2P tick of a ``stress_soa`` pair, as ``chip_smoke.py``
+  phase ``p2p`` drives it (two runners with ``P2PSession``s over a
+  ``ChannelNetwork``, 3 hops, no loss; input delay 1, prediction window 8,
+  checksums compared every frame; peer 0's input flips every 7 frames, so
+  peer 1 rolls back).  Prints one JSON line: host ms per peer tick over
+  ``P2P_TICKS`` ticks, split into the network poll, the session step
+  (inputs and ``advance_frame``), the resim calls and the rest of request
+  handling (ring and save cells); then, from a trace of ``PROFILE_TICKS``
+  ticks, the device-busy ms per tick, the idle share, and the kernel
+  launches and host<->device copies per tick.
+
 Needs a CUDA card; it fails without one.
 
-Run from the repo root: python scripts/torch_port_profile.py [--entities N]
+Run from the repo root:
+    python scripts/torch_port_profile.py [--entities N] [--p2p]
 """
 
 import argparse
 import json
 import sys
 import time
+from collections import defaultdict
 
 sys.path.insert(0, ".")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+P2P_TICKS = 240  # timed ticks per peer, as chip_smoke.py's p2p phase
+PROFILE_TICKS = 60  # traced ticks per peer
+WARMUP_TICKS = 30
+FLIP_FRAMES = 7
 
 
 def _device_us(evt) -> float:
@@ -30,50 +49,172 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _device_events(prof) -> list:
+    """The trace's device events with device time, as ``key_averages()``."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+
+
+def profile_resim(entities: int, k: int, calls: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevy_ggrs_tpu_torch.models import stress_soa
+
+    app = stress_soa.make_app(n_entities=entities, device="cuda")
+    world = app.init_state()
+    inputs = np.zeros((k, 2), np.uint8)
+    status = np.zeros((k, 2), np.int8)
+    for _ in range(3):
+        app.resim_fn(world, inputs, status, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        app.resim_fn(world, inputs, status, 0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            app.resim_fn(world, inputs, status, 0)
+        torch.cuda.synchronize()
+    kernels = _device_events(prof)
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / calls
+    launches = sum(e.count for e in kernels) / calls
+    top = sorted(kernels, key=_device_us, reverse=True)[:15]
+    return {
+        "card": torch.cuda.get_device_name(0), "entities": entities,
+        "k": k, "calls": calls, "wall_ms_per_call": wall_ms,
+        "device_busy_ms_per_call": busy_ms,
+        "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "kernel_launches_per_call": launches,
+        "wall_us_per_launch": wall_ms * 1e3 / launches if launches else None,
+        "top_kernels": [{"name": e.key[:90], "ms_per_call": _device_us(e) / 1e3 / calls,
+                         "calls_per_resim": e.count / calls} for e in top],
+    }
+
+
+def _p2p_pair(entities: int):
+    """Two stress_soa peers over a ChannelNetwork, synchronized."""
+    from bevy_ggrs_tpu_torch import DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+
+    net = ChannelNetwork(latency_hops=3, loss=0.0, seed=0)
+    runners = []
+    for i in range(2):
+        app = stress_soa.make_app(n_entities=entities, device="cuda")
+        session = (SessionBuilder.for_app(app).with_input_delay(1)
+                   .with_max_prediction_window(8)
+                   .with_desync_detection_mode(DesyncDetection.on(1))
+                   .add_player(PlayerType.LOCAL, i)
+                   .add_player(PlayerType.REMOTE, 1 - i, f"p{1 - i}")
+                   .start_p2p_session(net.endpoint(f"p{i}")))
+
+        def read_inputs(handles, i=i):  # peer 0 flips, peer 1 holds
+            on = i == 1 or (runners[0].frame // FLIP_FRAMES) % 2 == 0
+            return {h: np.uint8(8 if on else 1) for h in handles}
+
+        runners.append(GgrsRunner(app, session, read_inputs=read_inputs))
+    for _ in range(5000):
+        net.deliver()
+        for r in runners:
+            r.update(0.0)
+        if all(r.session.current_state().value == "running" for r in runners):
+            return net, runners
+    raise SystemExit("torch_port_profile: the sessions never synchronized")
+
+
+def _drive(net, runners, ticks: int) -> None:
+    for _ in range(ticks):
+        net.deliver()
+        for r in runners:
+            r.update(1.0 / 60.0)
+
+
+def _timed(obj, name: str, acc: dict, key: str) -> None:
+    """Replace ``obj.name`` by a wrapper that adds its host time to ``acc[key]``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            acc[key] += time.perf_counter() - t0
+
+    setattr(obj, name, wrapper)
+
+
+def profile_p2p(entities: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    net, runners = _p2p_pair(entities)
+    _drive(net, runners, WARMUP_TICKS)
+    acc = defaultdict(float)
+    for r in runners:
+        _timed(r.session, "poll_remote_clients", acc, "poll")
+        _timed(r, "_step_session", acc, "session_step")
+        _timed(r, "_handle_requests", acc, "handle_requests")
+        _timed(r.app, "resim_fn", acc, "resim")
+    frames0 = [r.frame for r in runners]
+    rollbacks0 = [r.rollbacks for r in runners]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _drive(net, runners, P2P_TICKS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peer_frames = [r.frame - f for r, f in zip(runners, frames0)]
+    rollbacks = [r.rollbacks - b for r, b in zip(runners, rollbacks0)]
+    peer_ticks = 2 * P2P_TICKS
+    host_ms = {k: v * 1e3 / peer_ticks for k, v in acc.items()}
+    host_ms["requests_besides_resim"] = host_ms["handle_requests"] - host_ms["resim"]
+    host_ms["tick"] = wall_s * 1e3 / peer_ticks
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _drive(net, runners, PROFILE_TICKS)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    busy_us, launches, htod, dtoh = 0.0, 0, 0, 0
+    events = _device_events(prof)
+    for e in events:
+        busy_us += _device_us(e)
+        if "Memcpy HtoD" in e.key:
+            htod += e.count
+        elif "Memcpy DtoH" in e.key:
+            dtoh += e.count
+        elif "Memcpy" not in e.key and "Memset" not in e.key:
+            launches += e.count
+    top = sorted(events, key=_device_us, reverse=True)[:8]
+    n = 2 * PROFILE_TICKS
+    return {
+        "card": torch.cuda.get_device_name(0), "entities": entities,
+        "ticks": P2P_TICKS,
+        "peer_frames": peer_frames, "rollbacks": rollbacks,
+        "host_ms_per_peer_tick": host_ms,
+        "profiled_peer_ticks": n, "wall_ms_per_peer_tick_profiled": prof_wall_ms / n,
+        "device_busy_ms_per_peer_tick": busy_us / 1e3 / n,
+        "idle_share": 1 - busy_us / 1e3 / prof_wall_ms if prof_wall_ms else None,
+        "kernel_launches_per_peer_tick": launches / n,
+        "htod_copies_per_peer_tick": htod / n, "dtoh_copies_per_peer_tick": dtoh / n,
+        "top_device_events": [{"name": e.key[:70], "ms_per_peer_tick": _device_us(e) / 1e3 / n,
+                               "calls_per_peer_tick": e.count / n} for e in top],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--entities", type=int, default=1_000_000)
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--p2p", action="store_true",
+                    help="profile a P2P tick of a stress_soa pair instead of a resim")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
-    from bevy_ggrs_tpu_torch.models import stress_soa
-
-    app = stress_soa.make_app(n_entities=args.entities, device="cuda")
-    world = app.init_state()
-    inputs = np.zeros((args.k, 2), np.uint8)
-    status = np.zeros((args.k, 2), np.int8)
-    for _ in range(3):
-        app.resim_fn(world, inputs, status, 0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.calls):
-        app.resim_fn(world, inputs, status, 0)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.calls
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.calls):
-            app.resim_fn(world, inputs, status, 0)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.calls
-    launches = sum(e.count for e in kernels) / args.calls
-    top = sorted(kernels, key=_device_us, reverse=True)[:15]
-    print(json.dumps({
-        "card": torch.cuda.get_device_name(0), "entities": args.entities,
-        "k": args.k, "calls": args.calls, "wall_ms_per_call": wall_ms,
-        "device_busy_ms_per_call": busy_ms,
-        "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernel_launches_per_call": launches,
-        "wall_us_per_launch": wall_ms * 1e3 / launches if launches else None,
-        "top_kernels": [{"name": e.key[:90], "ms_per_call": _device_us(e) / 1e3 / args.calls,
-                         "calls_per_resim": e.count / args.calls} for e in top],
-    }))
+    if args.p2p:
+        print(json.dumps(profile_p2p(args.entities)))
+    else:
+        print(json.dumps(profile_resim(args.entities, args.k, args.calls)))
     return 0
 
 

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the checksum pass kernel against its
 plain version on every lane dtype, ragged and unaligned stacks, many
 components and frame counts; the pass with no host sync and inside a CUDA
-graph; and the entry points' CUDA default.
+graph; the entry points' CUDA default; a checksum ref's non-blocking read;
+and a P2P pair on the card launching the fold once per resim.
 
 Marked ``cuda``; each skips without a card.  This file imports neither JAX
 nor the JAX package, so it runs on a machine without JAX:
@@ -9,13 +10,18 @@ nor the JAX package, so it runs on a machine without JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from bevy_ggrs_tpu_torch import App, GgrsRunner, SessionBuilder
+from bevy_ggrs_tpu_torch import App, DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
 from bevy_ggrs_tpu_torch.models import fixed_point, stress_soa
 from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+from bevy_ggrs_tpu_torch.session.events import DesyncDetected
+from bevy_ggrs_tpu_torch.snapshot.lazy import BatchChecks, ReadbackStats
 from bevy_ggrs_tpu_torch.snapshot import (
     WorldState,
     despawn_where,
@@ -199,3 +205,59 @@ def test_world_checksums_replay_in_a_cuda_graph_bit_exact(cuda):
     torch.cuda.synchronize()
     assert torch.equal(captured, world_checksums(app.reg, stacked))
     assert not torch.equal(captured, before)
+
+
+def test_checksum_ref_peek_never_syncs(cuda):
+    app = stress_soa.make_app(n_entities=N, device=cuda)
+    k = 4
+    _, _, checks = app.resim_fn(app.init_state(), np.zeros((k, 2), np.uint8),
+                                np.zeros((k, 2), np.int8), 0)
+    want = checks.cpu().tolist()
+    torch.cuda._sleep(100_000_000)  # keep the stream busy past the first peek
+    stats = ReadbackStats()
+    refs = BatchChecks(checks, stats)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = refs.ref(2).peek()
+        got = first
+        deadline = time.monotonic() + 30.0
+        while got is None and time.monotonic() < deadline:
+            time.sleep(0.001)
+            got = refs.ref(2).peek()
+        rest = [refs.ref(i).peek() for i in range(k)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert first is None and stats.peek_misses >= 1 and stats.forced == 0
+    assert rest == [(hi << 32) | lo for hi, lo in want]
+    assert got == rest[2] == BatchChecks(checks).ref(2)()
+
+
+def test_p2p_pair_on_card_launches_the_fold_once_per_resim(cuda):
+    net = ChannelNetwork(latency_hops=3, seed=1)
+    socks = [net.endpoint("p0"), net.endpoint("p1")]
+    runners = []
+    for i in range(2):
+        app = fixed_point.make_app(device=cuda)
+        session = (SessionBuilder.for_app(app).with_input_delay(1)
+                   .with_desync_detection_mode(DesyncDetection.on(1))
+                   .add_player(PlayerType.LOCAL, i)
+                   .add_player(PlayerType.REMOTE, 1 - i, f"p{1 - i}")
+                   .start_p2p_session(socks[i]))
+        holder = []
+
+        def read_inputs(handles, i=i, holder=holder):
+            on = (holder[0].frame // 7) % 2 == 0 or i == 1
+            return {h: np.uint8(8 if on else 1) for h in handles}
+
+        runners.append(GgrsRunner(app, session, read_inputs=read_inputs))
+        holder.append(runners[-1])
+    cf.launches = 0
+    for _ in range(100):
+        net.deliver()
+        for r in runners:
+            r.update(0.0 if r.session.current_state().value != "running" else 1 / 60)
+    for r in runners:
+        r.finish()
+    assert runners[1].rollbacks > 0 and min(r.frame for r in runners) > 50
+    assert cf.launches == sum(r.resims for r in runners)
+    assert not [e for r in runners for e in r.events if isinstance(e, DesyncDetected)]

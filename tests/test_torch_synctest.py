@@ -15,8 +15,9 @@ import torch
 from bevy_ggrs_tpu import GgrsRunner as JRunner
 from bevy_ggrs_tpu import SyncTestSession as JSession
 from bevy_ggrs_tpu.models import fixed_point as j_fixed_point
-from bevy_ggrs_tpu_torch import App, GgrsRunner, SessionBuilder, SyncTestSession
+from bevy_ggrs_tpu_torch import App, GgrsRunner, PlayerType, SessionBuilder, SyncTestSession
 from bevy_ggrs_tpu_torch.models import box_game, fixed_point
+from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
 from bevy_ggrs_tpu_torch.snapshot import (
     MissingSnapshotError,
     SnapshotRing,
@@ -274,11 +275,20 @@ def test_deferred_compare_detects_and_finish_flushes():
 
 
 def test_runner_serves_only_synctest_sessions():
+    """The runner refuses what is no session, and any session whose
+    rollback window passes the app's retention: SyncTest's check distance
+    and, since P2P sessions are served too, a P2P prediction window."""
     app = make_counter_app()
     with pytest.raises(TypeError, match="SyncTest"):
         GgrsRunner(app, object())
     with pytest.raises(ValueError, match="retention"):
         GgrsRunner(app, SyncTestSession(num_players=1, check_distance=12))
+    p2p = (SessionBuilder.for_app(app).with_num_players(2)
+           .with_max_prediction_window(12).add_player(PlayerType.LOCAL, 0)
+           .add_player(PlayerType.REMOTE, 1, "peer")
+           .start_p2p_session(ChannelNetwork().endpoint("me")))
+    with pytest.raises(ValueError, match="retention"):
+        GgrsRunner(app, p2p)
 
 
 # -- snapshot ring (the reference's GgrsSnapshots battery) ---------------------

@@ -186,12 +186,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import bevy_ggrs_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "missing = [m for m in sys.argv[1:] if m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'bevy_ggrs_tpu' or m.startswith('bevy_ggrs_tpu.')]\n"
-        "print(len(list(pkgutil.walk_packages(pkg.__path__))), bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(len(list(pkgutil.walk_packages(pkg.__path__))), bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+    # the session layer and checksum readback, each module by name
+    expected = [f"bevy_ggrs_tpu_torch.session.{m}" for m in (
+        "events", "requests", "input_queue", "time_sync", "protocol", "transport",
+        "channel", "p2p", "spectator", "builder", "native", "synctest")]
+    expected += ["bevy_ggrs_tpu_torch.snapshot.lazy", "bevy_ggrs_tpu_torch.runner"]
+    res = subprocess.run([sys.executable, "-c", code, *expected], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     # chip_smoke.py drives the port only
