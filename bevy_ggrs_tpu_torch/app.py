@@ -11,7 +11,14 @@ every check distance.
 The app owns a device: CUDA unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request it raises.
 
-Not in this slice: the packed, donated, speculate and branched functions.
+Besides the plain functions it builds the packed single-upload resim
+(``packed_spec``, ``packed_resim_fn``) and the donating variants
+(``resim_fn_donated``, ``packed_resim_fn_donated``), each ``None`` where
+the JAX package's is: the donating ones in canonical mode.  The
+single-frame ``advance_fn`` stages its row through pinned memory
+(``utils/staging.py``) and runs the packed resim.
+
+Not in this slice: the speculate and branched functions.
 """
 
 from __future__ import annotations
@@ -23,10 +30,19 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .ops.packing import (
+    PackedSpec,
+    PackedUpload,
+    pack_prefix,
+    pack_row,
+    prefix_words,
+    repeat_last_row,
+)
 from .ops.resim import (
     StepCtx,
-    make_advance_fn,
     make_canonical_resim_fn,
+    make_packed_canonical_resim_fn,
+    make_packed_resim_fn,
     make_resim_fn,
 )
 from .snapshot.checksum import world_checksum
@@ -34,6 +50,11 @@ from .snapshot.strategy import CopyStrategy, Strategy
 from .snapshot.world import Registry, WorldState
 from .utils.device import DeviceLike, resolve_device
 from .utils.frames import frame_add
+from .utils.staging import StagingQueue
+
+# the functions set_step invalidates
+_STEP_FNS = ("advance_fn", "resim_fn", "resim_fn_donated", "packed_resim_fn",
+             "packed_resim_fn_donated")
 
 DEFAULT_FPS = 60
 
@@ -118,7 +139,7 @@ class App:
     def set_step(self, fn: Callable[[WorldState, StepCtx], WorldState]) -> "App":
         """Set the simulation step (the user's ``GgrsSchedule`` systems)."""
         self._step = fn
-        for k in ("advance_fn", "resim_fn"):
+        for k in _STEP_FNS:
             self.__dict__.pop(k, None)
         return self
 
@@ -154,29 +175,79 @@ class App:
     @cached_property
     def advance_fn(self):
         """Single-frame advance ``fn(state, inputs, status, frame)`` ->
-        ``(state, checksum)``; through the canonical resim when configured."""
-        if self.canonical_depth is not None:
-            resim = self.resim_fn
+        ``(state, checksum)`` from host ``inputs``/``status``: the row is
+        packed into a pinned staging buffer, uploaded without a host wait
+        and run through :attr:`packed_resim_fn` (the canonical program when
+        configured)."""
+        spec, resim = self.packed_spec, self.packed_resim_fn
+        rows = self.canonical_depth or 1
+        stage = StagingQueue(lambda: spec.new_buffer(rows), device=self.device)
 
-            def fn(state, inputs, status, frame, _unused=None):
-                final, _, checks = resim(
-                    state, torch.as_tensor(inputs)[None],
-                    torch.as_tensor(status)[None], frame_add(int(frame), -1),
-                )
-                return final, checks[0]
+        def fn(state, inputs, status, frame, _unused=None):
+            buf = stage.acquire()
+            pack_prefix(buf, frame_add(int(frame), -1), 1)
+            pack_row(spec, buf, 0, inputs, status)
+            repeat_last_row(buf, 1, rows)
+            packed = PackedUpload(stage.commit(buf), *prefix_words(buf))
+            final, _, checks = resim(state, packed)
+            return final, checks[0]
 
-            return fn
-        return make_advance_fn(self.reg, self.step, self.fps, self.retention)
+        return fn
 
     @cached_property
     def resim_fn(self):
         """k-frame resim ``fn(state, inputs_seq, status_seq, start_frame)``
-        -> ``(final, stacked, checksums)``."""
+        -> ``(final, stacked, checksums)``; inputs and statuses on the app's
+        device."""
         if self.canonical_depth is not None:
             return make_canonical_resim_fn(
                 self.reg, self.step, self.fps, self.retention, self.canonical_depth,
             )
         return make_resim_fn(self.reg, self.step, self.fps, self.retention)
+
+    @cached_property
+    def resim_fn_donated(self):
+        """Donating :attr:`resim_fn`: the passed state object is dead after
+        the call (the sanitizer flags a later dispatch of it); no storage is
+        reused, so the results are the plain call's.  Callers donate only a
+        state nothing else will dispatch (the runner tracks this).  ``None``
+        in canonical mode, as in the JAX package:
+        there every call runs the one fixed-length program."""
+        if self.canonical_depth is not None:
+            return None
+        return make_resim_fn(self.reg, self.step, self.fps, self.retention,
+                             donate=True)
+
+    # -- packed single-upload functions (ops/packing.py) ---------------------
+
+    @cached_property
+    def packed_spec(self) -> PackedSpec:
+        """Static packed-buffer layout for this app's input spec."""
+        return PackedSpec.for_app(self)
+
+    @cached_property
+    def packed_resim_fn(self):
+        """Single-upload resim ``fn(state, packed: PackedUpload)`` ->
+        ``(final, stacked, checks)``: inputs and statuses ride one
+        ``int8[k + 1, W]`` upload, split on the card.  Canonical apps get
+        the fixed-length program, whose stacked states and checksums come
+        back untrimmed at ``canonical_depth`` rows."""
+        if self.canonical_depth is not None:
+            return make_packed_canonical_resim_fn(
+                self.reg, self.step, self.packed_spec, self.fps, self.retention,
+                self.canonical_depth,
+            )
+        return make_packed_resim_fn(self.reg, self.step, self.packed_spec,
+                                    self.fps, self.retention)
+
+    @cached_property
+    def packed_resim_fn_donated(self):
+        """Donating :attr:`packed_resim_fn` (the contract of
+        :attr:`resim_fn_donated`); ``None`` in canonical mode."""
+        if self.canonical_depth is not None:
+            return None
+        return make_packed_resim_fn(self.reg, self.step, self.packed_spec,
+                                    self.fps, self.retention, donate=True)
 
     @cached_property
     def checksum_fn(self):

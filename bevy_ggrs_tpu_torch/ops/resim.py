@@ -20,8 +20,19 @@ so the port needs no fixed-length program for bit-determinism; the
 canonical (padded) functions are kept so an app configured with
 ``canonical_depth`` has the same interface and results as in JAX.
 
+The resim takes its inputs and statuses as tensors on the world's device
+(numpy arrays only for a CPU world, where they are host memory already):
+no resim path copies from pageable host memory, which would make CUDA
+synchronise the stream.  The runner and :class:`~..app.App` stage them
+through pinned memory (``utils/staging.py``); the packed functions take
+one uploaded ``int8[k + 1, W]`` buffer (``ops/packing.py``) and split it
+on the card.  The donating variants donate by dropping the reference: the
+input world is dead after the call (the sanitizer flags a later dispatch
+of it), and no storage is written in place, so a snapshot that shares the
+input's tensors stays valid.
+
 Not in this slice: ``StepCtx.rng_key`` (no ported model reads it), the
-speculation, branched and packed functions.
+speculation and branched functions.
 """
 
 from __future__ import annotations
@@ -34,8 +45,10 @@ import torch
 
 from ..snapshot.checksum import world_checksums
 from ..snapshot.world import Registry, WorldState, despawn_confirmed
+from ..utils import staging
 from ..utils.frames import frame_add
 from ..utils.tree import tree_map
+from .packing import PackedSpec, PackedUpload, unpack_seq
 
 
 @dataclass
@@ -87,8 +100,20 @@ def advance(
     return state
 
 
-def _on_device(x: Any, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(x).to(device)
+def _as_input(x: Any, device: torch.device) -> torch.Tensor:
+    """``x`` as a tensor on ``device`` without a host-to-device copy: a
+    tensor must already lie there; a numpy array is taken as is only for
+    a CPU world."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"resim inputs lie on {x.device}, the world on {device}")
+        return x
+    if device.type != "cpu":
+        raise TypeError(
+            "resim inputs must be tensors on the world's device; stage host "
+            "arrays through utils.staging (pinned, non-blocking) first"
+        )
+    return torch.from_numpy(np.ascontiguousarray(x))
 
 
 def _empty_stack(state: WorldState, k: int) -> WorldState:
@@ -117,8 +142,8 @@ def resim(
     holds the state after each advance (leading axis k — the per-frame
     SaveWorld outputs) and ``checksums`` is ``[k, 2]`` (u32 in int64)."""
     dev = state.device
-    inputs_seq = _on_device(inputs_seq, dev)
-    status_seq = _on_device(status_seq, dev)
+    inputs_seq = _as_input(inputs_seq, dev)
+    status_seq = _as_input(status_seq, dev)
     k = inputs_seq.shape[0]
     stacked = _empty_stack(state, k)
     frame = int(start_frame)
@@ -145,8 +170,8 @@ def resim_padded(
     advance, later rows repeat the carried state (and its checksum), as the
     JAX package's canonical program does."""
     dev = state.device
-    inputs_seq = _on_device(inputs_seq, dev)
-    status_seq = _on_device(status_seq, dev)
+    inputs_seq = _as_input(inputs_seq, dev)
+    status_seq = _as_input(status_seq, dev)
     k = inputs_seq.shape[0]
     n_real = int(n_real)
     stacked = _empty_stack(state, k)
@@ -175,19 +200,64 @@ def trim_frames(tree, k: int):
     return tree_map(lambda a: a[:k], tree)
 
 
-def slice_frame(stacked_states: WorldState, i: int) -> WorldState:
-    """The state after the (i+1)-th advance of a stacked resim output (views
-    into the stacked tensors, no copy)."""
-    return tree_map(lambda a: a[i], stacked_states)
-
-
-def make_resim_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16):
+def make_resim_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16,
+                  donate: bool = False):
     """k-frame resim ``fn(state, inputs_seq, status_seq, start_frame)`` ->
-    ``(final, stacked, checksums)``."""
+    ``(final, stacked, checksums)``.
+
+    ``donate=True`` donates the input state: the passed state object is
+    dead after the call and the caller must use the returned one.  Eager
+    torch allocates ``final`` fresh either way, so donation writes nothing
+    (a copy into the old storage would only add work); the results are the
+    plain call's.  With the sanitizer armed, passing a donated state to any
+    resim raises."""
 
     def fn(state, inputs_seq, status_seq, start_frame, _retire_unused=None):
-        return resim(reg, step_fn, state, inputs_seq, status_seq, start_frame,
-                     retention, fps)
+        staging.sanitizer().guard_donated(state, "resim_fn")
+        out = resim(reg, step_fn, state, inputs_seq, status_seq,
+                    start_frame, retention, fps)
+        if donate:
+            staging.sanitizer().donate(state, "donated resim input")
+        return out
+
+    return fn
+
+
+def make_packed_resim_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec, fps: int,
+                         retention: int = 16, donate: bool = False):
+    """k-frame resim fed by ONE packed upload (``ops/packing.py``):
+    ``fn(state, packed: PackedUpload) -> (final, stacked, checks)``.
+
+    The inputs and statuses are split from ``packed.rows`` on its device by
+    a bit reinterpretation, and the start frame is the host word staged
+    with it, so the results are the unpacked function's bit for bit.
+    ``donate=True`` donates the input state (as :func:`make_resim_fn`)."""
+    plain = make_resim_fn(reg, step_fn, fps, retention, donate)
+
+    def fn(state, packed: PackedUpload):
+        inputs_seq, status_seq = unpack_seq(spec, packed.rows)
+        return plain(state, inputs_seq, status_seq, packed.start_frame)
+
+    return fn
+
+
+def make_packed_canonical_resim_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec,
+                                   fps: int, retention: int = 16, k_max: int = 16):
+    """Packed variant of :func:`make_canonical_resim_fn`:
+    ``fn(state, packed int8[k_max + 1, W]) -> (final, stacked, checks)``
+    with the real advance count in ``packed.n_real`` (a host word).  The
+    stacked states and checksums come back untrimmed at ``k_max`` rows;
+    rows below ``n_real`` are the trimmed ones.  No donating variant, as
+    in the JAX package (canonical mode runs one program for every call)."""
+
+    def fn(state, packed: PackedUpload):
+        inputs_seq, status_seq = unpack_seq(spec, packed.rows)
+        staging.sanitizer().guard_donated(state, "packed_resim_fn")
+        if inputs_seq.shape[0] != k_max:
+            raise ValueError(f"packed canonical resim takes {k_max} rows, "
+                             f"not {inputs_seq.shape[0]}")
+        return resim_padded(reg, step_fn, state, inputs_seq, status_seq,
+                            packed.start_frame, packed.n_real, retention, fps)
 
     return fn
 
@@ -198,6 +268,7 @@ def make_canonical_resim_fn(reg: Registry, step_fn: StepFn, fps: int,
     resim_fn signature (pads, runs, trims)."""
 
     def fn(state, inputs_seq, status_seq, start_frame, _unused=None):
+        staging.sanitizer().guard_donated(state, "resim_fn")
         k = inputs_seq.shape[0]
         if k > k_max:
             raise ValueError(
@@ -212,21 +283,5 @@ def make_canonical_resim_fn(reg: Registry, step_fn: StepFn, fps: int,
         if pad:
             stacked, checks = trim_frames((stacked, checks), k)
         return final, stacked, checks
-
-    return fn
-
-
-def make_advance_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16):
-    """Single-frame advance ``fn(state, inputs, status, frame)`` ->
-    ``(state, checksum)``, where ``frame`` is the frame being computed."""
-
-    def fn(state, inputs, status, frame, _retire_unused=None):
-        dev = state.device
-        final, _, checks = resim(
-            reg, step_fn, state, _on_device(inputs, dev)[None],
-            _on_device(status, dev)[None], frame_add(int(frame), -1),
-            retention, fps,
-        )
-        return final, checks[0]
 
     return fn

@@ -1,35 +1,48 @@
-"""Lazy device->host checksum readback.
+"""Lazy device->host checksum readback and lazy frame slices.
 
-Port of the checksum-readback part of ``bevy_ggrs_tpu/snapshot/lazy.py``
-(``BatchChecks``, ``ChecksumRef``, ``wrap_single_checksum``).  A resim's
-checksums are one ``[k, 2]`` tensor (hi, lo; u32 in int64) on the world's
-device, and a session needs only some of its rows, one at a time: SyncTest
-at its comparison cadence, a P2P session every desync-detection interval
-frame once it is confirmed.
+Port of ``bevy_ggrs_tpu/snapshot/lazy.py`` (the solo runner's part).  A
+resim's checksums are one ``[k, 2]`` tensor (hi, lo; u32 in int64) on the
+world's device, and a session needs only some of its rows, one at a time:
+SyncTest at its comparison cadence, a P2P session every desync-detection
+interval frame once it is confirmed.
 
-- :class:`BatchChecks` wraps one resim's ``[k, 2]`` checksums.  Its first
-  non-blocking read starts ONE non-blocking copy of all k rows into pinned
-  host memory and records a CUDA event after it; until ``event.query()``
-  is true such reads return None, and none of them waits for the card.  A
-  forcing read waits for that copy (or makes a blocking one): a *forced*
-  readback.  On CPU tensors the rows are host memory already, and either
-  read takes them at once.
+- :class:`BatchChecks` wraps one resim's ``[k, 2]`` checksums and enters a
+  process-wide pending set.  :meth:`~BatchChecks.start_async` starts ONE
+  non-blocking copy of all k rows into pinned host memory and records a
+  CUDA event after it; until ``event.query()`` is true non-blocking reads
+  return None, and none of them waits for the card.  A forcing read waits
+  for that copy (or makes a blocking one): a *forced* readback.  On CPU
+  tensors the rows are host memory already, and either read takes them at
+  once.
 - :class:`ChecksumRef` is one row of a batch and the provider the sessions
   consume: calling it forces the value, :meth:`ChecksumRef.peek` is the
   non-blocking read that ``P2PSession._resolve_checksum`` retries each poll.
 - :class:`ReadbackStats` counts the reads of one owner (a runner): peeks
   that returned None, reads that found the copy landed, forced reads.
+- :class:`ReadbackQueue` is the pipelined runner's side of it: ``start``
+  at dispatch, ``harvest`` of every landed copy at the top of each tick,
+  ``flush`` (a blocking pull of everything pending) at flush points.  The
+  pending set is the queue, so one queue (:func:`readback_queue`) serves
+  every runner in the process, as in the JAX package.
+- :class:`LazySlice` defers the per-frame slice of a stacked resim output:
+  the snapshot ring stores ``(stacked, i)`` handles; :func:`tree_index`
+  is the slice as views (what a rollback loads), and
+  :meth:`LazySlice.materialize` a device clone that no longer pins the
+  stacked buffer (the ring's memory guard).
 
-Not ported yet (the dispatch pipeline): ``LazySlice``, ``fused_load_rows``
-and ``ReadbackQueue``.
+Not ported yet (the batched runner, ROADMAP A9): ``plan_row_gather``,
+``fused_load_rows`` and ``fused_gather_rows``.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
+
+from ..utils.tree import tree_map
 
 
 @dataclass
@@ -45,51 +58,73 @@ class BatchChecks:
     """One resim's ``[k, 2]`` checksums, read back to the host once (see
     module docstring)."""
 
-    __slots__ = ("_dev", "_host", "_pinned", "_event", "_stats")
+    _pending: "weakref.WeakSet[BatchChecks]" = weakref.WeakSet()
+
+    __slots__ = ("_dev", "_host", "_started", "_pinned", "_event", "_stats",
+                 "__weakref__")
 
     def __init__(self, dev: torch.Tensor, stats: Optional[ReadbackStats] = None):
         self._dev: Optional[torch.Tensor] = dev
         self._host: Optional[List[List[int]]] = None
+        self._started = False  # the copy was started (CPU rows: "landed")
         self._pinned: Optional[torch.Tensor] = None
         self._event = None
         self._stats = stats if stats is not None else ReadbackStats()
+        BatchChecks._pending.add(self)
 
     def _adopt(self, rows: torch.Tensor) -> List[List[int]]:
         self._host = rows.tolist()
         self._dev = self._pinned = self._event = None
+        BatchChecks._pending.discard(self)
         return self._host
+
+    def start_async(self) -> None:
+        """Start the one non-blocking device->host copy of the rows (a
+        no-op once started or read; CPU rows need no copy)."""
+        if self._host is not None or self._started:
+            return
+        self._started = True
+        if self._dev.device.type != "cuda":
+            return
+        self._pinned = torch.empty(self._dev.shape, dtype=self._dev.dtype,
+                                   pin_memory=True)
+        self._pinned.copy_(self._dev, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+
+    def _landed(self) -> bool:
+        """True when the started copy has landed: reading the rows would
+        not wait for the card.  A batch never started has not landed, so a
+        read of it counts as forced, on the CPU too."""
+        if not self._started:
+            return False
+        return self._event is None or self._event.query()
+
+    def _harvest(self) -> List[List[int]]:
+        self._stats.harvested += 1
+        return self._adopt(self._pinned if self._event is not None else self._dev)
 
     def try_host(self) -> Optional[List[List[int]]]:
         """The ``[k, 2]`` rows if they can be had without waiting for the
         card, else None (starting the copy on the first call)."""
         if self._host is not None:
             return self._host
-        if self._dev.device.type != "cuda":
-            self._stats.harvested += 1
-            return self._adopt(self._dev)
-        if self._event is None:  # the first read starts the one copy
-            self._pinned = torch.empty(self._dev.shape, dtype=self._dev.dtype,
-                                       pin_memory=True)
-            self._pinned.copy_(self._dev, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        if not self._event.query():
+        self.start_async()
+        if not self._landed():
             self._stats.peek_misses += 1
             return None
-        self._stats.harvested += 1
-        return self._adopt(self._pinned)
+        return self._harvest()
 
     def host(self) -> List[List[int]]:
         """The ``[k, 2]`` rows, waiting for the card if they have not
         landed (a forced readback)."""
         if self._host is not None:
             return self._host
-        if self._dev.device.type != "cuda":
-            self._stats.harvested += 1
-            return self._adopt(self._dev)
-        if self._event is not None and self._event.query():
-            self._stats.harvested += 1
-            return self._adopt(self._pinned)
+        if self._landed():
+            return self._harvest()
+        return self._force()
+
+    def _force(self) -> List[List[int]]:
         self._stats.forced += 1
         if self._event is None:
             return self._adopt(self._dev)
@@ -98,6 +133,24 @@ class BatchChecks:
 
     def ref(self, i: int) -> "ChecksumRef":
         return ChecksumRef(self, i)
+
+    @classmethod
+    def pull_pending(cls, stats: Optional[ReadbackStats] = None) -> None:
+        """Read every pending batch in the process now (only those counted
+        in ``stats`` when it is given, so one runner's flush does not force
+        another's batches), in their owners' stats: a batch whose started
+        copy has landed is harvested, the rest are forced (all their copies
+        start before the first wait)."""
+        pending = [b for b in list(cls._pending) if b._host is None
+                   and (stats is None or b._stats is stats)]
+        landed = [b._landed() for b in pending]
+        for b in pending:
+            b.start_async()
+        for b, was_landed in zip(pending, landed):
+            if was_landed:
+                b._harvest()
+            else:
+                b._force()
 
 
 class ChecksumRef:
@@ -132,3 +185,75 @@ def wrap_single_checksum(cs: torch.Tensor,
                          stats: Optional[ReadbackStats] = None) -> ChecksumRef:
     """Wrap one ``[2]`` checksum as a 1-row batch's ref."""
     return BatchChecks(cs[None], stats).ref(0)
+
+
+class ReadbackQueue:
+    """The pipelined runner's readback coordinator (see module docstring).
+
+    ``start(batch)`` begins a batch's non-blocking copy right after its
+    dispatch; ``harvest()`` (once per runner tick) reads every batch whose
+    copy has landed and starts the copy of any pending batch that has
+    none; ``flush()`` is the blocking read of everything pending, for
+    flush points and the synchronous mode."""
+
+    def start(self, batch: BatchChecks) -> None:
+        batch.start_async()
+
+    def harvest(self) -> int:
+        """Read every landed batch; returns how many were read."""
+        n = 0
+        for b in list(BatchChecks._pending):
+            if b._host is not None:
+                BatchChecks._pending.discard(b)
+                continue
+            b.start_async()
+            if b._landed():
+                b._harvest()
+                n += 1
+        return n
+
+    def depth(self) -> int:
+        """Batches still in flight (pending and not read)."""
+        return sum(1 for b in list(BatchChecks._pending) if b._host is None)
+
+    def flush(self) -> None:
+        """Blocking read of everything still pending."""
+        BatchChecks.pull_pending()
+
+
+_readback_queue: Optional[ReadbackQueue] = None
+
+
+def readback_queue() -> ReadbackQueue:
+    """The process-wide :class:`ReadbackQueue`."""
+    global _readback_queue
+    if _readback_queue is None:
+        _readback_queue = ReadbackQueue()
+    return _readback_queue
+
+
+def tree_index(stacked, i: int):
+    """``stacked``'s frame ``i``: every leaf's row ``i``, as views."""
+    return tree_map(lambda a: a[i], stacked)
+
+
+class LazySlice:
+    """Frame ``i`` of a stacked resim output, not sliced yet: the ring
+    stores these, and only the frame a rollback loads is sliced.  A live
+    handle keeps the whole ``[k, ...]`` stacked buffer alive."""
+
+    __slots__ = ("_stacked", "_i")
+
+    def __init__(self, stacked, i: int):
+        self._stacked = stacked
+        self._i = i
+
+    def materialize(self):
+        """The frame as fresh device tensors (one clone per leaf); the
+        result no longer pins the stacked buffer."""
+        return tree_map(lambda a: a.clone(), tree_index(self._stacked, self._i))
+
+
+def materialize(obj):
+    """LazySlice -> concrete world; anything else passes through."""
+    return obj.materialize() if isinstance(obj, LazySlice) else obj

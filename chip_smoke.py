@@ -36,7 +36,7 @@ and no result.  The phases:
                torch: the 64-bit checksums must match frame by frame; a
                4096-entity stress_soa resim is held to the CPU's states;
 7. synctest — ``GgrsRunner`` + ``SyncTestSession`` at check_distance 7 with
-               flipping inputs: box_game and fixed_point for 600 frames,
+               flipping inputs: box_game and fixed_point for 300 frames,
                stress_soa at 100k entities for 120 frames; zero mismatches;
 8. p2p      — pairs of port runners with ``P2PSession``s over a
                ``ChannelNetwork`` (3 hops, no loss), input delay 1,
@@ -53,29 +53,50 @@ and no result.  The phases:
                ``pos`` offset must raise ``DesyncDetected`` within 60
                frames, and fixed_point's confirmed checksums on the card
                must equal the same pair's on the CPU;
-9. spectator — a box_game host pair streaming to a port
+9. pipeline — the runner's dispatch modes on the P2P traffic of phase 8
+               (stress_soa 1M and fixed_point pairs, 240 timed frames
+               after a warm-up): the defaults (pipelined, packed single
+               upload, donation) and the sync baseline (``pipeline=False,
+               packed=False``).  Both modes' confirmed checksums must be
+               equal at every frame both confirm, fixed_point's also equal
+               to a CPU pair's, with zero ``DesyncDetected`` and one fold
+               launch per resim.  The pipelined loop runs under
+               ``set_sync_debug_mode("error")`` with no forced readback and
+               no staging wait (event waits are invisible to that mode, so
+               the runner's counters are read too); a profiled window then
+               counts host-to-device copies per resim (1 from pinned
+               memory on the packed path, 2 on the sync path, 0 from
+               pageable memory) and launches per tick.  Frames/s per peer,
+               pipeline degradations, peek misses, materialized saves and
+               ``torch.cuda.max_memory_allocated`` for both modes; then a
+               stress_soa 100k SyncTest at d=7 in both modes: zero
+               mismatches, equal checksum streams, donation on the
+               pipelined run;
+10. spectator — a box_game host pair streaming to a port
                ``SpectatorSession``: it reaches RUNNING and its checksum
                at each frame equals the host's confirmed checksum there;
-10. native  — a port ``NativeP2PSession`` peer against a port
+11. native  — a port ``NativeP2PSession`` peer against a port
                ``P2PSession`` peer, fixed_point on the card, over loopback
                UDP at input delay 0: the native peer steps first on a
                clock 10% fast, so it predicts the Python peer's flipping
                input and rolls back;
                both RUNNING, 120 frames, zero desyncs, equal confirmed
                checksums;
-11. result  — the kernels line, the card line, then
+12. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
+Every runner phase runs the runner's defaults unless it names a mode.
 Kernel launch counts are reset just before each driven path and read just
 after it; a path that did not launch the kernel fails.  Launches made to
 compare the kernel with its plain version are not counted.  The session
-phases (8 to 10) also hold the fold's output on the stacks their resims
+phases (8 to 11) also hold the fold's output on the stacks their resims
 produced against the plain version, after the counts are read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -111,7 +132,7 @@ SIZES = {
     "ragged_entities": 100_003,
     "many_comps": 20,
     "profile_calls": 20,
-    "synctest_frames": 600,
+    "synctest_frames": 300,
     "synctest_stress_entities": 100_000,
     "synctest_stress_frames": 120,
     "parity_stress_entities": 4096,
@@ -125,13 +146,21 @@ SIZES = {
     "desync_offset_frame": 60,
     "desync_window": 60,
     "p2p_cpu_parity_frame": 200,
-    "spectator_frames": 240,
+    "pipeline_warmup_frames": 30,
+    "pipeline_frames": 240,
+    "pipeline_profile_frames": 30,
+    "spectator_frames": 160,
     "native_frames": 120,
 }
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, stamped with the seconds since the start."""
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0, **fields}),
+          flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -298,10 +327,16 @@ def device_profile(fn, calls: int) -> dict:
             "profiler_saw_device": bool(events)}
 
 
+def on_device(x, dev) -> torch.Tensor:
+    """A host array as a tensor on ``dev`` (set-up only: the resim takes
+    device tensors and never copies from pageable host memory itself)."""
+    return torch.as_tensor(x).to(dev)
+
+
 def stacked_of(app, world, k: int):
     """A ``[k, ...]`` stack of worlds from a k-frame resim with fixed inputs."""
-    inputs = np.full((k, app.num_players), 5, np.uint8)
-    status = np.zeros((k, app.num_players), np.int8)
+    inputs = on_device(np.full((k, app.num_players), 5, np.uint8), app.device)
+    status = on_device(np.zeros((k, app.num_players), np.int8), app.device)
     return app.resim_fn(world, inputs, status, 0)[1]
 
 
@@ -548,8 +583,8 @@ def phase_resim(dev) -> int:
     n, k = SIZES["bench_entities"], SIZES["bench_k"]
     app = stress_soa.make_app(n_entities=n, device=dev)
     world = app.init_state()
-    inputs = np.zeros((k, 2), np.uint8)
-    status = np.zeros((k, 2), np.int8)
+    inputs = on_device(np.zeros((k, 2), np.uint8), dev)
+    status = on_device(np.zeros((k, 2), np.int8), dev)
     for _ in range(2):  # warm-up
         app.resim_fn(world, inputs, status, 0)
     sync(dev)
@@ -593,7 +628,8 @@ def phase_parity(dev) -> None:
         rng = np.random.default_rng(7)
         inputs = rng.integers(0, 16, (k, app.num_players)).astype(np.uint8)
         status = np.zeros((k, app.num_players), np.int8)
-        _, _, checks = app.resim_fn(app.init_state(), inputs, status, 0)
+        _, _, checks = app.resim_fn(app.init_state(), on_device(inputs, d),
+                                    on_device(status, d), 0)
         runs[d] = [checksum_to_int(c) for c in checks.cpu()]
     if runs[dev] != runs["cpu"]:
         raise SystemExit(f"chip_smoke: fixed_point checksums differ between "
@@ -601,8 +637,8 @@ def phase_parity(dev) -> None:
     states = {}
     for d in (dev, "cpu"):
         app = stress_soa.make_app(n_entities=SIZES["parity_stress_entities"], device=d)
-        inputs = np.zeros((8, 2), np.uint8)
-        _, stacked, _ = app.resim_fn(app.init_state(), inputs, np.zeros((8, 2), np.int8), 0)
+        zeros = on_device(np.zeros((8, 2), np.uint8), d)
+        _, stacked, _ = app.resim_fn(app.init_state(), zeros, zeros.to(torch.int8), 0)
         states[d] = {c: v.cpu() for c, v in stacked.comps.items()}
     diff = max(float((states[dev][c] - states["cpu"][c]).abs().max()) for c in states["cpu"])
     if not diff <= 1e-4:
@@ -612,8 +648,10 @@ def phase_parity(dev) -> None:
          stress_soa_tolerance=1e-4)
 
 
-def synctest(app, frames: int, check_distance: int = 7) -> dict:
-    """One SyncTest run through the runner; a mismatch raises."""
+def synctest(app, frames: int, check_distance: int = 7, **runner_kw) -> dict:
+    """One SyncTest run through the runner (``runner_kw`` picks its
+    dispatch mode); a mismatch raises.  ``stream`` is the world checksum
+    after each tick, read after the run."""
     from bevy_ggrs_tpu_torch import GgrsRunner, SessionBuilder
     from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
 
@@ -625,13 +663,15 @@ def synctest(app, frames: int, check_distance: int = 7) -> dict:
         phase = (holder[0].frame // 7) % 4
         return {h: np.uint8(1 << ((phase + h) % 4)) for h in handles}
 
-    runner = GgrsRunner(app, session, read_inputs=read_inputs)
+    runner = GgrsRunner(app, session, read_inputs=read_inputs, **runner_kw)
     holder.append(runner)
     sync(app.device)
     cf.launches = 0
+    refs = []
     t0 = time.perf_counter()
     for _ in range(frames):
         runner.tick()
+        refs.append(runner._world_checksum)
     runner.finish()
     sync(app.device)
     dt = time.perf_counter() - t0
@@ -643,7 +683,9 @@ def synctest(app, frames: int, check_distance: int = 7) -> dict:
             "frames_per_s": frames / dt, "seconds": dt, "rollbacks": runner.rollbacks,
             "resimulated_frames": runner.rollback_frames,
             "kernel_launches": cf.launches, "mismatches": 0,
-            "final_checksum": hex(runner.checksum)}
+            "pipeline": runner.pipeline, "packed": runner.packed,
+            "donated_dispatches": runner.donated_dispatches,
+            "final_checksum": hex(runner.checksum), "stream": [ref() for ref in refs]}
 
 
 def phase_synctest(dev) -> None:
@@ -658,6 +700,7 @@ def phase_synctest(dev) -> None:
             SIZES["synctest_stress_frames"]),
     }
     for name, r in runs.items():
+        r.pop("stream")
         emit("synctest", model=name, **r)
 
 
@@ -692,11 +735,12 @@ def record_confirmed(runner) -> dict:
 
 
 def p2p_peer(make_app, i: int, socket, peer_addr, native_port=None, spectator=None,
-             input_delay: int = 1):
+             input_delay: int = 1, **runner_kw):
     """One peer of a 2-player game (prediction window 8, checksums compared
     every frame); ``native_port`` makes it a native core session bound to
     that UDP port, ``spectator`` an address it streams confirmed inputs
-    to."""
+    to; ``runner_kw`` picks the runner's dispatch mode (its defaults: the
+    pipelined, packed, donating path)."""
     from bevy_ggrs_tpu_torch import DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
 
     app = make_app()
@@ -711,7 +755,7 @@ def p2p_peer(make_app, i: int, socket, peer_addr, native_port=None, spectator=No
     else:
         session = b.start_p2p_session_native(local_port=native_port)
     holder = []
-    runner = GgrsRunner(app, session, read_inputs=frame_inputs(i, holder))
+    runner = GgrsRunner(app, session, read_inputs=frame_inputs(i, holder), **runner_kw)
     holder.append(runner)
     return runner
 
@@ -744,30 +788,39 @@ def desyncs(runner) -> list:
     return [e for e in runner.events if isinstance(e, DesyncDetected)]
 
 
-def channel_pair(make_app, seed: int):
+def channel_pair(make_app, seed: int, **runner_kw):
     """Two port peers over a ChannelNetwork: (net, runners, confirmed refs)."""
     from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
 
     net = ChannelNetwork(latency_hops=SIZES["p2p_latency_hops"], loss=0.0, seed=seed)
     socks = [net.endpoint("p0"), net.endpoint("p1")]
-    runners = [p2p_peer(make_app, i, socks[i], f"p{1 - i}") for i in range(2)]
+    runners = [p2p_peer(make_app, i, socks[i], f"p{1 - i}", **runner_kw)
+               for i in range(2)]
     return net, runners, [record_confirmed(r) for r in runners]
+
+
+RESIM_FNS = ("resim_fn", "resim_fn_donated", "packed_resim_fn", "packed_resim_fn_donated")
 
 
 def keep_stacks(runners) -> dict:
     """``k -> (registry, stacked output)`` of the first resim of each depth
-    ``k`` the runners run, kept to hold the fold against its plain version
-    on the main path's own tensors."""
+    ``k`` the runners run (through any of the app's resim functions: plain,
+    donating, packed), kept to hold the fold against its plain version on
+    the main path's own tensors."""
     kept = {}
     for r in runners:
-        resim_fn, reg = r.app.resim_fn, r.app.reg
+        app = r.app
+        for name in RESIM_FNS:
+            fn = getattr(app, name)
+            if fn is None:
+                continue
 
-        def keeping(world, inputs, status, frame, resim_fn=resim_fn, reg=reg):
-            out = resim_fn(world, inputs, status, frame)
-            kept.setdefault(len(inputs), (reg, out[1]))
-            return out
+            def keeping(*args, fn=fn, reg=app.reg):
+                out = fn(*args)
+                kept.setdefault(out[2].shape[0], (reg, out[1]))
+                return out
 
-        r.app.resim_fn = keeping
+            setattr(app, name, keeping)
     return kept
 
 
@@ -1031,6 +1084,213 @@ def phase_native(dev) -> int:
     return launches
 
 
+# -- the runner's dispatch modes ---------------------------------------------------
+
+MODES = {  # the runner's defaults (pipelined, packed, donating) and the sync baseline
+    "pipelined": {},
+    "sync": {"pipeline": False, "packed": False},
+}
+
+
+def counters(runners) -> dict:
+    """The runners' counters summed over the pair."""
+    out = {"resims": 0, "frames": 0, "forced": 0, "peek_misses": 0, "harvested": 0}
+    for r in runners:
+        st = r.stats()
+        out["resims"] += r.resims
+        out["frames"] += r.frame
+        for key in ("forced", "peek_misses", "harvested"):
+            out[key] += st["readbacks"][key]
+        for key in ("pipeline_degrades", "materialized_saves", "donated_dispatches",
+                    "host_uploads", "packed_upload_bytes", "staging_deferred_blocks",
+                    "staging_landed_free", "rollbacks"):
+            out[key] = out.get(key, 0) + st[key]
+    return out
+
+
+def profile_ticks(runners, net, ticks: int) -> dict:
+    """A profiler trace of ``ticks`` pair ticks: host-to-device copies per
+    resim (pinned and pageable), device-to-host copies and kernel launches
+    per peer tick, device busy time (kernels, copies and fills) and the
+    idle share; a busy time beyond the window's wall time fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    resims0 = sum(r.resims for r in runners)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive(runners, ticks, net)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    resims = sum(r.resims for r in runners) - resims0
+    counts = {"htod": 0, "htod_pinned": 0, "htod_pageable": 0, "dtoh": 0, "launches": 0}
+    busy_us = 0.0
+    for e in prof.key_averages():
+        # kernels, copies and fills only: a user annotation's device range
+        # spans the kernels inside it and would count them twice
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith("ProfilerStep"):
+            continue
+        busy_us += next((float(getattr(e, a)) for a in ("self_device_time_total",
+                                                        "self_cuda_time_total")
+                         if hasattr(e, a)), 0.0)
+        if "HtoD" in e.key:
+            counts["htod"] += e.count
+            counts["htod_pinned"] += e.count if "Pinned" in e.key else 0
+            counts["htod_pageable"] += e.count if "Pageable" in e.key else 0
+        elif "DtoH" in e.key:
+            counts["dtoh"] += e.count
+        elif "Memcpy" not in e.key and "Memset" not in e.key:
+            counts["launches"] += e.count
+    peer_ticks = 2 * ticks
+    if not 0 < busy_us / 1e3 <= wall_ms:
+        # the copy stream overlaps the compute stream by microseconds at
+        # most; a busy time beyond the wall time is a counting error
+        raise SystemExit(f"chip_smoke: profiled device busy time {busy_us / 1e3} ms "
+                         f"is not within the window's {wall_ms} ms")
+    return {"profiled_peer_ticks": peer_ticks, "profiled_resims": resims, **counts,
+            "htod_per_resim": counts["htod"] / resims if resims else None,
+            "pinned_htod_per_resim": counts["htod_pinned"] / resims if resims else None,
+            "dtoh_per_peer_tick": counts["dtoh"] / peer_ticks,
+            "launches_per_peer_tick": counts["launches"] / peer_ticks,
+            "host_ms_per_peer_tick": wall_ms / peer_ticks,
+            "device_busy_ms_per_peer_tick": busy_us / 1e3 / peer_ticks,
+            "idle_share": 1 - busy_us / 1e3 / wall_ms if wall_ms else None}
+
+
+def pipeline_run(name: str, make_app, dev, seed: int, mode: str) -> dict:
+    """One P2P pair in one dispatch mode: warm-up, a timed steady loop (the
+    pipelined one under ``set_sync_debug_mode("error")``), a profiled
+    window, then the checks: one fold launch per resim, no desync, and for
+    the pipelined mode no forced readback and no staging wait in the loop,
+    one pinned upload per resim and none from pageable memory."""
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        gc.collect()  # earlier runs' runners sit in reference cycles
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    net, runners, seen = channel_pair(make_app, seed, **MODES[mode])
+    sync_sessions(runners, net)
+    kept = keep_stacks(runners)
+    drive(runners, SIZES["pipeline_warmup_frames"], net)
+    frames = SIZES["pipeline_frames"]
+    before = counters(runners)
+    sync(dev)
+    cf.launches = 0
+    debug = cuda and mode == "pipelined"
+    t0 = time.perf_counter()
+    if debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        drive(runners, frames, net)
+    finally:
+        if debug:
+            torch.cuda.set_sync_debug_mode("default")
+    host_s = time.perf_counter() - t0
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = cf.launches
+    after = counters(runners)
+    loop = {k: after[k] - before[k] for k in after}
+    prof = profile_ticks(runners, net, SIZES["pipeline_profile_frames"]) if cuda else {}
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    for r in runners:
+        r.finish()
+    agreed = agreed_checksums(seen)
+    stack_shapes = check_stacks(f"{name}/{mode}", kept) if cuda else []
+    result = {
+        "pair": name, "mode": mode, "device": str(dev), "frames": frames,
+        "sync_debug_mode": "error" if debug else "default",
+        "seconds": dt, "host_seconds_of_loop": host_s,
+        "frames_per_s_per_peer": loop["frames"] / 2 / dt,
+        "packed": runners[0].packed, "pipeline": runners[0].pipeline,
+        "loop": loop, "fold_launches": launches,
+        "launches_per_resim": launches / loop["resims"] if loop["resims"] else None,
+        "desyncs": [len(desyncs(r)) for r in runners],
+        "max_memory_allocated_bytes": peak, "profile": prof,
+        "confirmed_frames_agreed": len(agreed), "path_stacks_bit_exact": stack_shapes,
+    }
+    fail = []
+    if cuda and launches != loop["resims"]:
+        fail.append(f"{launches} fold launches for {loop['resims']} resims")
+    if any(result["desyncs"]) or len(agreed) < frames // 2 or loop["rollbacks"] == 0:
+        fail.append("desync, few agreed frames or no rollback")
+    if mode == "pipelined":
+        if loop["forced"] or loop["staging_deferred_blocks"]:
+            fail.append("the pipelined loop waited for the card")
+        if loop["host_uploads"] != loop["resims"] or loop["donated_dispatches"] == 0:
+            fail.append("not one packed upload per resim, or no donation")
+    elif loop["host_uploads"] != 2 * loop["resims"]:
+        fail.append("the sync path did not make two uploads per resim")
+    if cuda:
+        # the runner's census above is exact; the trace must agree, but may
+        # miss one tick's copy records at the window's edge (seen on the
+        # H100: 59 of 60)
+        uploads = 1 if mode == "pipelined" else 2
+        want = uploads * prof["profiled_resims"]
+        if prof["htod_pageable"] or prof["htod"] != prof["htod_pinned"] \
+                or not want - uploads <= prof["htod_pinned"] <= want:
+            fail.append(f"host-to-device copies per resim: {prof}")
+    if fail:
+        raise SystemExit(f"chip_smoke: pipeline {name}/{mode}: {'; '.join(fail)}: {result}")
+    result["agreed"] = agreed
+    return result
+
+
+def phase_pipeline(dev, card: str) -> int:
+    """P2P traffic (stress_soa 1M and fixed_point) and SyncTest (stress_soa
+    100k, d=7) in the runner's default mode and in the sync baseline: the
+    same confirmed checksums, fixed_point's equal to a CPU pair's, and the
+    pipelined loops free of host waits.  Returns the pipelined P2P loops'
+    fold launches."""
+    from bevy_ggrs_tpu_torch.models import fixed_point, stress_soa
+
+    n = SIZES["p2p_stress_entities"]
+    pairs = {
+        f"stress_soa_{n}": lambda: stress_soa.make_app(n_entities=n, device=dev),
+        "fixed_point": lambda: fixed_point.make_app(device=dev),
+    }
+    launches = 0
+    fps = {}
+    for seed, (name, make_app) in enumerate(pairs.items()):
+        runs = {mode: pipeline_run(name, make_app, dev, seed, mode) for mode in MODES}
+        a, b = runs["pipelined"].pop("agreed"), runs["sync"].pop("agreed")
+        shared = sorted(set(a) & set(b))
+        if len(shared) < SIZES["pipeline_frames"] // 2 or any(a[f] != b[f] for f in shared):
+            raise SystemExit(f"chip_smoke: pipeline {name}: the modes' confirmed "
+                             f"checksums differ ({len(shared)} shared frames)")
+        if name == "fixed_point":
+            cpu = pipeline_run(name, lambda: fixed_point.make_app(device="cpu"),
+                               torch.device("cpu"), seed, "pipelined").pop("agreed")
+            on_cpu = [f for f in shared if f in cpu]
+            if len(on_cpu) < SIZES["pipeline_frames"] // 2 \
+                    or any(a[f] != cpu[f] for f in on_cpu):
+                raise SystemExit("chip_smoke: pipeline fixed_point: the card's confirmed "
+                                 "checksums differ from the CPU pair's")
+            runs["pipelined"]["frames_equal_to_cpu_pair"] = len(on_cpu)
+        launches += runs["pipelined"]["fold_launches"]
+        for mode, r in runs.items():
+            fps[f"{name}/{mode}"] = r["frames_per_s_per_peer"]
+            emit("pipeline", card=card, modes_agree_at_frames=len(shared), **r)
+    synctests = {}
+    for mode, kw in MODES.items():
+        app = stress_soa.make_app(n_entities=SIZES["synctest_stress_entities"], device=dev)
+        synctests[mode] = synctest(app, SIZES["synctest_stress_frames"], **kw)
+    streams = [r.pop("stream") for r in synctests.values()]
+    if streams[0] != streams[1] or synctests["pipelined"]["donated_dispatches"] == 0:
+        raise SystemExit("chip_smoke: pipeline SyncTest: the modes' checksum streams "
+                         "differ, or the pipelined run donated nothing")
+    for mode, r in synctests.items():
+        fps[f"synctest_stress_soa_100k/{mode}"] = r["frames_per_s"]
+        emit("pipeline_synctest", model="stress_soa_100k", mode=mode, card=card,
+             streams_equal=True, **r)
+    emit("pipeline_frames_per_s", card=card, frames_per_s_per_peer=fps)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1044,6 +1304,7 @@ def main() -> int:
     phase_parity(dev)
     phase_synctest(dev)
     by_path = {"resim": launches, "p2p": phase_p2p(dev),
+               "pipeline": phase_pipeline(dev, card),
                "spectator": phase_spectator(dev), "native": phase_native(dev)}
     print(json.dumps({"kernels": [{
         "name": "checksum_fold",

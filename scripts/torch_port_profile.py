@@ -5,24 +5,30 @@ traces.  Two modes:
 - default: ``App.resim_fn`` on ``stress_soa`` (k=8).  Prints one JSON line:
   wall ms per resim call (host clock around calls that end in a
   synchronize), device-busy ms per call (the sum of the CUDA kernels' self
-  time in the trace; kernels of one stream do not overlap), the idle share,
+  time in the trace; kernels of one stream do not overlap), the idle share
+  of the profiled calls (a busy time beyond their wall time fails),
   the kernel launches per call and the wall time per launch, and the top
   kernels by device time with their calls.
 - ``--p2p``: a P2P tick of a ``stress_soa`` pair, as ``chip_smoke.py``
-  phase ``p2p`` drives it (two runners with ``P2PSession``s over a
-  ``ChannelNetwork``, 3 hops, no loss; input delay 1, prediction window 8,
-  checksums compared every frame; peer 0's input flips every 7 frames, so
-  peer 1 rolls back).  Prints one JSON line: host ms per peer tick over
-  ``P2P_TICKS`` ticks, split into the network poll, the session step
-  (inputs and ``advance_frame``), the resim calls and the rest of request
-  handling (ring and save cells); then, from a trace of ``PROFILE_TICKS``
-  ticks, the device-busy ms per tick, the idle share, and the kernel
-  launches and host<->device copies per tick.
+  phases ``p2p`` and ``pipeline`` drive it (two runners with
+  ``P2PSession``s over a ``ChannelNetwork``, 3 hops, no loss; input delay
+  1, prediction window 8, checksums compared every frame; peer 0's input
+  flips every 7 frames, so peer 1 rolls back).  ``--mode`` picks the
+  runner's dispatch mode: ``pipelined`` (its defaults: pipelined, packed,
+  donating) or ``sync`` (``pipeline=False, packed=False``).  Prints one
+  JSON line: host ms per peer tick over ``P2P_TICKS`` ticks, split into
+  the network poll, the session step (inputs and ``advance_frame``), the
+  resim calls, the rest of request handling (staging, ring and save
+  cells) and the rest of the tick (the harvest, and in the sync mode the
+  end-of-tick wait for the card); then, from a trace of
+  ``PROFILE_TICKS`` ticks, the device-busy ms per tick, the idle share,
+  the kernel launches per tick, and the host-to-device copies per tick
+  (from pinned and from pageable memory) and device-to-host copies.
 
 Needs a CUDA card; it fails without one.
 
 Run from the repo root:
-    python scripts/torch_port_profile.py [--entities N] [--p2p]
+    python scripts/torch_port_profile.py [--entities N] [--p2p [--mode pipelined|sync]]
 """
 
 import argparse
@@ -40,6 +46,8 @@ P2P_TICKS = 240  # timed ticks per peer, as chip_smoke.py's p2p phase
 PROFILE_TICKS = 60  # traced ticks per peer
 WARMUP_TICKS = 30
 FLIP_FRAMES = 7
+MODES = {"pipelined": {}, "sync": {"pipeline": False, "packed": False}}
+RESIM_FNS = ("resim_fn", "resim_fn_donated", "packed_resim_fn", "packed_resim_fn_donated")
 
 
 def _device_us(evt) -> float:
@@ -50,9 +58,21 @@ def _device_us(evt) -> float:
 
 
 def _device_events(prof) -> list:
-    """The trace's device events with device time, as ``key_averages()``."""
+    """The trace's kernels, copies and fills with device time, as
+    ``key_averages()`` (a user annotation's device range spans the kernels
+    inside it and would count them twice)."""
     return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("ProfilerStep")]
+
+
+def _idle_share(busy_ms: float, wall_ms: float) -> float:
+    """``1 - busy / wall``; a busy time beyond the wall time is a counting
+    error, not an idle share, and raises."""
+    if not 0 < busy_ms <= wall_ms:
+        raise SystemExit(f"device busy {busy_ms} ms is not within the wall time {wall_ms} ms")
+    return 1.0 - busy_ms / wall_ms
 
 
 def profile_resim(entities: int, k: int, calls: int) -> dict:
@@ -62,8 +82,8 @@ def profile_resim(entities: int, k: int, calls: int) -> dict:
 
     app = stress_soa.make_app(n_entities=entities, device="cuda")
     world = app.init_state()
-    inputs = np.zeros((k, 2), np.uint8)
-    status = np.zeros((k, 2), np.int8)
+    inputs = torch.zeros((k, 2), dtype=torch.uint8, device="cuda")
+    status = torch.zeros((k, 2), dtype=torch.int8, device="cuda")
     for _ in range(3):
         app.resim_fn(world, inputs, status, 0)
     torch.cuda.synchronize()
@@ -73,9 +93,11 @@ def profile_resim(entities: int, k: int, calls: int) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
         for _ in range(calls):
             app.resim_fn(world, inputs, status, 0)
         torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3 / calls
     kernels = _device_events(prof)
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / calls
     launches = sum(e.count for e in kernels) / calls
@@ -84,7 +106,8 @@ def profile_resim(entities: int, k: int, calls: int) -> dict:
         "card": torch.cuda.get_device_name(0), "entities": entities,
         "k": k, "calls": calls, "wall_ms_per_call": wall_ms,
         "device_busy_ms_per_call": busy_ms,
-        "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "wall_ms_per_call_profiled": prof_wall_ms,
+        "idle_share": _idle_share(busy_ms, prof_wall_ms),
         "kernel_launches_per_call": launches,
         "wall_us_per_launch": wall_ms * 1e3 / launches if launches else None,
         "top_kernels": [{"name": e.key[:90], "ms_per_call": _device_us(e) / 1e3 / calls,
@@ -92,7 +115,7 @@ def profile_resim(entities: int, k: int, calls: int) -> dict:
     }
 
 
-def _p2p_pair(entities: int):
+def _p2p_pair(entities: int, mode: str):
     """Two stress_soa peers over a ChannelNetwork, synchronized."""
     from bevy_ggrs_tpu_torch import DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
     from bevy_ggrs_tpu_torch.models import stress_soa
@@ -113,7 +136,7 @@ def _p2p_pair(entities: int):
             on = i == 1 or (runners[0].frame // FLIP_FRAMES) % 2 == 0
             return {h: np.uint8(8 if on else 1) for h in handles}
 
-        runners.append(GgrsRunner(app, session, read_inputs=read_inputs))
+        runners.append(GgrsRunner(app, session, read_inputs=read_inputs, **MODES[mode]))
     for _ in range(5000):
         net.deliver()
         for r in runners:
@@ -144,17 +167,19 @@ def _timed(obj, name: str, acc: dict, key: str) -> None:
     setattr(obj, name, wrapper)
 
 
-def profile_p2p(entities: int) -> dict:
+def profile_p2p(entities: int, mode: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    net, runners = _p2p_pair(entities)
+    net, runners = _p2p_pair(entities, mode)
     _drive(net, runners, WARMUP_TICKS)
     acc = defaultdict(float)
     for r in runners:
         _timed(r.session, "poll_remote_clients", acc, "poll")
         _timed(r, "_step_session", acc, "session_step")
         _timed(r, "_handle_requests", acc, "handle_requests")
-        _timed(r.app, "resim_fn", acc, "resim")
+        for name in RESIM_FNS:
+            if getattr(r.app, name) is not None:
+                _timed(r.app, name, acc, "resim")
     frames0 = [r.frame for r in runners]
     rollbacks0 = [r.rollbacks for r in runners]
     torch.cuda.synchronize()
@@ -168,17 +193,21 @@ def profile_p2p(entities: int) -> dict:
     host_ms = {k: v * 1e3 / peer_ticks for k, v in acc.items()}
     host_ms["requests_besides_resim"] = host_ms["handle_requests"] - host_ms["resim"]
     host_ms["tick"] = wall_s * 1e3 / peer_ticks
+    # harvest, and in the sync mode the end-of-tick wait for the card
+    host_ms["rest_of_tick"] = host_ms["tick"] - sum(
+        host_ms[k] for k in ("poll", "session_step", "handle_requests"))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         _drive(net, runners, PROFILE_TICKS)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    busy_us, launches, htod, dtoh = 0.0, 0, 0, 0
+    busy_us, launches, htod, htod_pageable, dtoh = 0.0, 0, 0, 0, 0
     events = _device_events(prof)
     for e in events:
         busy_us += _device_us(e)
         if "Memcpy HtoD" in e.key:
             htod += e.count
+            htod_pageable += e.count if "Pageable" in e.key else 0
         elif "Memcpy DtoH" in e.key:
             dtoh += e.count
         elif "Memcpy" not in e.key and "Memset" not in e.key:
@@ -186,15 +215,17 @@ def profile_p2p(entities: int) -> dict:
     top = sorted(events, key=_device_us, reverse=True)[:8]
     n = 2 * PROFILE_TICKS
     return {
-        "card": torch.cuda.get_device_name(0), "entities": entities,
+        "card": torch.cuda.get_device_name(0), "entities": entities, "mode": mode,
         "ticks": P2P_TICKS,
         "peer_frames": peer_frames, "rollbacks": rollbacks,
         "host_ms_per_peer_tick": host_ms,
         "profiled_peer_ticks": n, "wall_ms_per_peer_tick_profiled": prof_wall_ms / n,
         "device_busy_ms_per_peer_tick": busy_us / 1e3 / n,
-        "idle_share": 1 - busy_us / 1e3 / prof_wall_ms if prof_wall_ms else None,
+        "idle_share": _idle_share(busy_us / 1e3 / n, prof_wall_ms / n),
         "kernel_launches_per_peer_tick": launches / n,
-        "htod_copies_per_peer_tick": htod / n, "dtoh_copies_per_peer_tick": dtoh / n,
+        "htod_copies_per_peer_tick": htod / n,
+        "pageable_htod_copies_per_peer_tick": htod_pageable / n,
+        "dtoh_copies_per_peer_tick": dtoh / n,
         "top_device_events": [{"name": e.key[:70], "ms_per_peer_tick": _device_us(e) / 1e3 / n,
                                "calls_per_peer_tick": e.count / n} for e in top],
     }
@@ -207,12 +238,14 @@ def main() -> int:
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--p2p", action="store_true",
                     help="profile a P2P tick of a stress_soa pair instead of a resim")
+    ap.add_argument("--mode", choices=sorted(MODES), default="pipelined",
+                    help="the runner's dispatch mode for --p2p")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
         return 1
     if args.p2p:
-        print(json.dumps(profile_p2p(args.entities)))
+        print(json.dumps(profile_p2p(args.entities, args.mode)))
     else:
         print(json.dumps(profile_resim(args.entities, args.k, args.calls)))
     return 0

@@ -2,7 +2,10 @@
 plain version on every lane dtype, ragged and unaligned stacks, many
 components and frame counts; the pass with no host sync and inside a CUDA
 graph; the entry points' CUDA default; a checksum ref's non-blocking read;
-and a P2P pair on the card launching the fold once per resim.
+a P2P pair on the card launching the fold once per resim; the pipelined,
+packed, donating tick with no host sync; a pinned staging buffer never
+rewritten before its upload's event; and the fold on a packed resim's
+stack.
 
 Marked ``cuda``; each skips without a card.  This file imports neither JAX
 nor the JAX package, so it runs on a machine without JAX:
@@ -19,9 +22,12 @@ import torch
 from bevy_ggrs_tpu_torch import App, DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
 from bevy_ggrs_tpu_torch.models import fixed_point, stress_soa
 from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+from bevy_ggrs_tpu_torch.ops.packing import PackedUpload, pack_prefix, pack_row, prefix_words
 from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
 from bevy_ggrs_tpu_torch.session.events import DesyncDetected
-from bevy_ggrs_tpu_torch.snapshot.lazy import BatchChecks, ReadbackStats
+from bevy_ggrs_tpu_torch.snapshot.lazy import BatchChecks, ReadbackStats, tree_index
+from bevy_ggrs_tpu_torch.utils import staging
+from bevy_ggrs_tpu_torch.utils.staging import StagingBuffer, TransferRaceError
 from bevy_ggrs_tpu_torch.snapshot import (
     WorldState,
     despawn_where,
@@ -77,8 +83,8 @@ def _stacked(app, dev, seed, k=K):
     w = despawn_where(app.reg, w, torch.from_numpy(rng.random(rows) < 0.1).to(dev), 0)
     for slot in rng.integers(0, rows - 50, 20):
         w = remove_component(app.reg, w, int(slot), next(iter(app.reg.components)))
-    inputs = np.zeros((k, 2), np.uint8)
-    return app.resim_fn(w, inputs, np.zeros((k, 2), np.int8), 0)[1]
+    inputs = torch.zeros((k, 2), dtype=torch.uint8, device=dev)
+    return app.resim_fn(w, inputs, torch.zeros((k, 2), dtype=torch.int8, device=dev), 0)[1]
 
 
 def _dtype_args(name, dev):
@@ -210,8 +216,8 @@ def test_world_checksums_replay_in_a_cuda_graph_bit_exact(cuda):
 def test_checksum_ref_peek_never_syncs(cuda):
     app = stress_soa.make_app(n_entities=N, device=cuda)
     k = 4
-    _, _, checks = app.resim_fn(app.init_state(), np.zeros((k, 2), np.uint8),
-                                np.zeros((k, 2), np.int8), 0)
+    zeros = torch.zeros((k, 2), dtype=torch.uint8, device=cuda)
+    _, _, checks = app.resim_fn(app.init_state(), zeros, zeros.to(torch.int8), 0)
     want = checks.cpu().tolist()
     torch.cuda._sleep(100_000_000)  # keep the stream busy past the first peek
     stats = ReadbackStats()
@@ -261,3 +267,119 @@ def test_p2p_pair_on_card_launches_the_fold_once_per_resim(cuda):
     assert runners[1].rollbacks > 0 and min(r.frame for r in runners) > 50
     assert cf.launches == sum(r.resims for r in runners)
     assert not [e for r in runners for e in r.events if isinstance(e, DesyncDetected)]
+
+
+def _flipping_pair(app_fn, cuda, **runner_kw):
+    """Two peers over a 3-hop channel, peer 0's input flipping every 7
+    frames, synchronized."""
+    net = ChannelNetwork(latency_hops=3, seed=1)
+    socks = [net.endpoint("p0"), net.endpoint("p1")]
+    runners = []
+    for i in range(2):
+        app = app_fn()
+        session = (SessionBuilder.for_app(app).with_input_delay(1)
+                   .with_desync_detection_mode(DesyncDetection.on(1))
+                   .add_player(PlayerType.LOCAL, i)
+                   .add_player(PlayerType.REMOTE, 1 - i, f"p{1 - i}")
+                   .start_p2p_session(socks[i]))
+        holder = []
+
+        def read_inputs(handles, i=i, holder=holder):
+            on = (holder[0].frame // 7) % 2 == 0 or i == 1
+            return {h: np.uint8(8 if on else 1) for h in handles}
+
+        runners.append(GgrsRunner(app, session, read_inputs=read_inputs, **runner_kw))
+        holder.append(runners[-1])
+    for _ in range(500):
+        net.deliver()
+        for r in runners:
+            r.update(0.0)
+        if all(r.session.current_state().value == "running" for r in runners):
+            return net, runners
+    raise AssertionError("sessions never synchronized")
+
+
+def test_pipelined_tick_makes_no_host_sync(cuda):
+    """The runner's default path (pipelined, packed, donating) ticks under
+    sync debug mode "error": no sync, no pageable copy; and no forced read
+    or staging wait, which that mode cannot see."""
+    net, runners = _flipping_pair(lambda: stress_soa.make_app(n_entities=N, device=cuda),
+                                  cuda)
+    for _ in range(30):  # warm the allocators and the readback pool
+        net.deliver()
+        for r in runners:
+            r.update(1 / 60)
+    before = [r.stats() for r in runners]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(60):
+            net.deliver()
+            for r in runners:
+                r.update(1 / 60)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = [r.stats() for r in runners]
+    for r in runners:
+        r.finish()
+    for b, a in zip(before, after):
+        assert a["readbacks"]["forced"] == b["readbacks"]["forced"]
+        assert a["staging_deferred_blocks"] == b["staging_deferred_blocks"]
+        resims = a["device_dispatches"] - b["device_dispatches"]
+        assert a["host_uploads"] - b["host_uploads"] == resims > 0
+        assert a["donated_dispatches"] > b["donated_dispatches"]
+    assert after[1]["rollbacks"] > before[1]["rollbacks"]
+    assert not [e for r in runners for e in r.events if isinstance(e, DesyncDetected)]
+
+
+def test_staging_buffer_not_rewritten_before_its_event(cuda):
+    """A commit queued behind work on the side stream has not landed: the
+    next acquire waits on its event (a deferred block), so the rewrite
+    cannot reach the upload; armed, the sanitizer refuses a rewrite that
+    skips the acquire."""
+    stage = StagingBuffer(lambda: np.zeros((4, 1 << 20), np.int8), cuda)
+    buf = stage.acquire()
+    buf[:] = 1
+    with torch.cuda.stream(stage.stream):
+        torch.cuda._sleep(200_000_000)  # hold the copy back
+    dev = stage.commit(buf)
+    assert not stage._event.query()
+    again = stage.acquire()
+    assert again is buf and stage.deferred_blocks == 1 and stage._event.query()
+    again[:] = 2
+    assert int(dev.to(torch.int64).sum()) == buf.size  # the upload kept the 1s
+    san = staging.set_sanitize(True)
+    try:
+        stage.commit(buf)
+        with pytest.raises(TransferRaceError, match="in flight"):
+            pack_prefix(buf, 0, 3)
+        stage.acquire()
+        pack_prefix(buf, 0, 3)
+        assert san.violations == 1
+    finally:
+        staging.set_sanitize(False)
+
+
+def test_fold_bit_exact_on_packed_resim_stack(cuda):
+    """A packed resim (one pinned upload, split on the card) gives the
+    unpacked resim's checksums, and the fold on its stack is bit-exact
+    against the plain version."""
+    app = stress_soa.make_app(n_entities=N, device=cuda)
+    spec = app.packed_spec
+    stage = StagingBuffer(lambda: spec.new_buffer(K), cuda)
+    rng = np.random.default_rng(9)
+    inputs = rng.integers(0, 16, (K, 2)).astype(np.uint8)
+    status = rng.integers(0, 3, (K, 2)).astype(np.int8)
+    buf = stage.acquire()
+    pack_prefix(buf, 5, K)
+    for i in range(K):
+        pack_row(spec, buf, i, inputs[i], status[i])
+    packed = PackedUpload(stage.commit(buf), *prefix_words(buf))
+    world = tree_index(_stacked(app, cuda, seed=2, k=1), 0)  # despawned, has-false rows
+    _, stacked, checks = app.packed_resim_fn(world, packed)
+    _, _, want = app.resim_fn(world, torch.from_numpy(inputs).to(cuda),
+                              torch.from_numpy(status).to(cuda), 5)
+    names = [n for n, c in app.reg.components.items() if c.checksum]
+    args = fold_inputs(app.reg, stacked, names)
+    got = cf.checksum_fold(*args)
+    assert torch.equal(got, cf.checksum_fold_plain(*args))
+    assert torch.equal(checks, want)
