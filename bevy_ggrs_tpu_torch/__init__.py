@@ -3,7 +3,10 @@
 GGPO-style rollback netcode for deterministic simulations whose state is
 columnar SoA tensors on an NVIDIA GPU.  A rollback of N frames is one
 resim call returning every intermediate state and checksum; the checksum
-fold is a CUDA kernel written for Hopper (``csrc/checksum_fold.cu``).  The
+fold is a CUDA kernel written for Hopper (``csrc/checksum_fold.cu``).
+Speculation fans M predicted remote-input branches out along a
+``torch.func.vmap`` branch axis and serves a rollback whose corrected
+inputs were hedged from that cache (``ops/speculation.py``).  The
 session/network layer (input queues, prediction, sync/quality/desync
 protocol, UDP transport) runs on the host, in Python or in the native C++
 core.
@@ -15,6 +18,8 @@ reference.  This package imports torch, never JAX, and nothing of
 """
 
 from .app import App
+from .ops.resim import StepCtx, select_branch, slice_frame
+from .ops.speculation import SpeculationCache, SpeculationConfig, pad_candidates
 from .runner import GgrsRunner
 from .session import (
     DesyncDetection,
@@ -46,4 +51,6 @@ __all__ = [
     "InputStatus", "SessionState", "PlayerType", "Player", "DesyncDetection",
     "GgrsError", "PredictionThresholdError", "MismatchedChecksumError",
     "NotSynchronizedError", "InvalidRequestError", "NetworkStats", "NULL_FRAME",
+    "StepCtx", "select_branch", "slice_frame",
+    "SpeculationConfig", "SpeculationCache", "pad_candidates",
 ]

@@ -1,2 +1,3 @@
-"""Device work of the port: the frame engine (``resim``) and the checksum
-fold kernel (``checksum_fold``)."""
+"""Device work of the port: the frame engine and its branch axis
+(``resim``), the speculation cache (``speculation``), packed uploads
+(``packing``) and the checksum fold kernel (``checksum_fold``)."""

@@ -88,11 +88,17 @@ class PackedSpec:
         """Fresh zeroed host buffer for a ``k``-frame dispatch (+prefix)."""
         return np.zeros((k + 1, self.width), np.int8)
 
+    def new_batch_buffer(self, m: int, k: int) -> np.ndarray:
+        """Fresh zeroed host buffer for ``m`` lanes of a ``k``-frame
+        dispatch, one prefix row per lane: ``int8[m, k + 1, W]``."""
+        return np.zeros((m, k + 1, self.width), np.int8)
+
 
 class PackedUpload(NamedTuple):
     """One packed dispatch's argument: the uploaded ``int8[k + 1, W]``
-    buffer on the world's device and the prefix words, read on the host
-    from the buffer it was staged from (see :func:`prefix_words`)."""
+    buffer (``int8[m, k + 1, W]`` for ``m`` branch lanes) on the world's
+    device and the prefix words, read on the host from the buffer it was
+    staged from (see :func:`prefix_words`; lane 0's for a batch)."""
 
     rows: torch.Tensor
     start_frame: int
@@ -150,23 +156,26 @@ def repeat_last_row(buf: np.ndarray, k: int, k_pad: int) -> None:
 # -- device-side unpacking (bit reinterpretation) ----------------------------
 
 def unpack_seq(spec: PackedSpec, rows: torch.Tensor):
-    """Split an uploaded ``int8[k + 1, W]`` buffer back into
-    ``(inputs[k, P, *shape], status int8[k, P])`` on its device.
+    """Split an uploaded ``int8[..., k + 1, W]`` buffer back into
+    ``(inputs[..., k, P, *shape], status int8[..., k, P])`` on its device;
+    leading axes (branch lanes) carry through.
 
     The statuses are a view.  The inputs are a view too where
-    ``Tensor.view(dtype)`` allows it: the payload's byte offset and the
-    row stride must be multiples of the input's item size, and a stride of
-    ``W`` bytes is only 4-aligned.  Otherwise the input columns are copied
-    into a contiguous tensor first (one device copy); the bytes, and so
-    the values, are the same either way."""
-    k = rows.shape[0] - 1
-    payload = rows[1:]
-    raw = payload[:, :spec.in_bytes]
+    ``Tensor.view(dtype)`` allows it: the payload's byte offset and every
+    stride but the last must be multiples of the input's item size, and a
+    stride of ``W`` bytes is only 4-aligned.  Otherwise the input columns
+    are copied into a contiguous tensor first (one device copy); the bytes,
+    and so the values, are the same either way."""
+    lead = tuple(rows.shape[:-2])
+    k = rows.shape[-2] - 1
+    payload = rows[..., 1:, :]
+    raw = payload[..., :spec.in_bytes]
     dtype = torch_dtype(spec.input_dtype)
     size = spec.input_dtype.itemsize
-    if size > 1 and (raw.stride(0) % size or raw.storage_offset() % size):
+    if size > 1 and (any(st % size for st in raw.stride()[:-1])
+                     or raw.storage_offset() % size):
         # a fresh tensor: .contiguous() would keep a size-1 slice's offset
         raw = raw.clone(memory_format=torch.contiguous_format)
-    inputs = raw.view(dtype).reshape(k, spec.players, *spec.input_shape)
-    status = payload[:, spec.in_bytes:spec.payload].reshape(k, spec.players)
+    inputs = raw.view(dtype).reshape(*lead, k, spec.players, *spec.input_shape)
+    status = payload[..., spec.in_bytes:spec.payload].reshape(*lead, k, spec.players)
     return inputs, status

@@ -31,23 +31,43 @@ input world is dead after the call (the sanitizer flags a later dispatch
 of it), and no storage is written in place, so a snapshot that shares the
 input's tensors stays valid.
 
-Not in this slice: ``StepCtx.rng_key`` (no ported model reads it), the
-speculation and branched functions.
+The branch axis (speculation): :func:`resim_branches` advances M lanes
+of inputs from one state with ``torch.func.vmap`` over one frame's
+:func:`advance` (the despawn sweep, the step, the store/load round trip),
+the frame loop outside it.  The ``[M, k, ...]`` stacks are allocated and
+written outside ``vmap``, and the checksum fold runs once after the loop
+over the stack viewed as ``[M * k, ...]``: one fold launch per call.
+Each lane computes what the plain :func:`resim` computes on that lane's
+inputs (bit for bit on the shipped models, checked on the CPU by the tests
+and on the card by ``chip_smoke.py``).  A per-lane ``n_real`` (the
+canonical-branched program) is a host decision: lanes past their count
+repeat their carried state, and a select runs only on frames where some
+lanes advance and others hold.  An op with no batching rule makes
+``vmap`` run it lane by lane; those fallbacks are counted in
+:data:`vmap_fallbacks`.  A step that cannot run under ``vmap`` at all (an
+in-place write of a batched value into an unbatched tensor, as
+``spawn``'s index writes do) raises at the first call; it is never run
+lane by lane instead.  :func:`make_speculate_fn`,
+:func:`make_packed_speculate_fn` and :func:`make_canonical_branched_fn`
+wrap it as the JAX package's functions of those names.
+
+Not ported: ``StepCtx.rng_key`` (no ported model reads it).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..snapshot.checksum import world_checksums
+from ..snapshot.checksum import branch_checksums, world_checksums
 from ..snapshot.world import Registry, WorldState, despawn_confirmed
 from ..utils import staging
 from ..utils.frames import frame_add
-from ..utils.tree import tree_map
+from ..utils.tree import tree_flatten, tree_map, tree_unflatten
 from .packing import PackedSpec, PackedUpload, unpack_seq
 
 
@@ -195,9 +215,12 @@ def pad_repeat_last(arr, pad: int):
     return np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
 
 
-def trim_frames(tree, k: int):
-    """``tree_map(a[:k])``: the first ``k`` frames, as views."""
-    return tree_map(lambda a: a[:k], tree)
+def trim_frames(tree, k: int, axis: int = 0):
+    """The first ``k`` frames along ``axis`` (0, or 1 for a branch
+    stack), as views."""
+    if axis == 0:
+        return tree_map(lambda a: a[:k], tree)
+    return tree_map(lambda a: a[:, :k], tree)
 
 
 def make_resim_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16,
@@ -285,3 +308,195 @@ def make_canonical_resim_fn(reg: Registry, step_fn: StepFn, fps: int,
         return final, stacked, checks
 
     return fn
+
+
+# -- the branch axis (speculation) ------------------------------------------
+
+#: Ops that ``torch.func.vmap`` ran lane by lane on the branch axis because
+#: they have no batching rule (counted from functorch's fallback warning).
+#: A plain counter: reset it to 0 before a run you want to count.
+vmap_fallbacks = 0
+
+_FALLBACK_WARNING = "There is a performance drop because we have not yet implemented"
+
+
+def _advance_lanes(reg: Registry, step_fn: StepFn, template: WorldState, leaves: list,
+                   batched: bool, inputs: torch.Tensor, status: torch.Tensor,
+                   frame: int, retention: int, fps: int) -> list:
+    """One :func:`advance` on every lane: ``torch.func.vmap`` over the
+    world's leaves (batched on axis 0, or one state for all lanes), the
+    lanes' inputs and statuses.  Returns the new leaves, ``[M, ...]``."""
+    global vmap_fallbacks
+
+    def one(lane_leaves, inp, st):
+        out = advance(reg, step_fn, tree_unflatten(template, lane_leaves), inp, st,
+                      frame, retention, fps)
+        flat = []
+        tree_map(lambda _, x: flat.append(x), template, out)
+        return flat
+
+    lanes = torch.func.vmap(one, in_dims=(0 if batched else None, 0, 0))
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            new = lanes(leaves, inputs, status)
+        except (RuntimeError, ValueError) as e:
+            raise RuntimeError(
+                "the step failed under torch.func.vmap on the speculation branch "
+                "axis; a speculating app's step must batch (every op with a "
+                "batching rule, no in-place write of a batched value into an "
+                f"unbatched tensor, as spawn's index writes make): {e}"
+            ) from e
+    for w in caught:
+        if _FALLBACK_WARNING in str(w.message):
+            vmap_fallbacks += 1
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    return new
+
+
+def _lane_mask(advancing: Sequence[bool], device: torch.device) -> torch.Tensor:
+    """``bool[M]`` of the advancing lanes, made on ``device`` by fills (no
+    host-to-device copy)."""
+    mask = torch.zeros(len(advancing), dtype=torch.bool, device=device)
+    b = 0
+    while b < len(advancing):
+        if advancing[b]:
+            e = b
+            while e < len(advancing) and advancing[e]:
+                e += 1
+            mask[b:e] = True
+            b = e
+        else:
+            b += 1
+    return mask
+
+
+def resim_branches(
+    reg: Registry,
+    step_fn: StepFn,
+    state: WorldState,
+    inputs_b,  # [M, k, num_players, *input_shape]
+    status_b,  # int8[M, k, num_players]
+    start_frame: int,
+    retention: int,
+    fps: int,
+    n_real: Optional[Sequence[int]] = None,  # host ints, one per lane
+) -> Tuple[WorldState, WorldState, torch.Tensor]:
+    """Advance M lanes ``k`` frames from one ``state``, each on its own
+    inputs: the branch-axis :func:`resim` (see module docstring).
+
+    Returns ``(finals, stacked, checksums)`` with a leading lane axis:
+    ``finals`` ``[M, ...]``, ``stacked`` ``[M, k, ...]`` and ``checksums``
+    ``[M, k, 2]``.  With ``n_real``, lane ``b`` advances its first
+    ``n_real[b]`` frames and repeats its carried state (and checksum) after
+    them, as :func:`resim_padded` does."""
+    dev = state.device
+    inputs_b = _as_input(inputs_b, dev)
+    status_b = _as_input(status_b, dev)
+    m, k = inputs_b.shape[:2]
+    counts = [k] * m if n_real is None else [int(n) for n in n_real]
+    if len(counts) != m:
+        raise ValueError(f"n_real has {len(counts)} lanes, the inputs {m}")
+    leaves = tree_flatten(state)
+    stacks = [torch.empty((m, k, *a.shape), dtype=a.dtype, device=a.device)
+              for a in leaves]
+    batched = False
+    masks = {}
+    frame = int(start_frame)
+    for i in range(k):
+        advancing = tuple(i < n for n in counts)
+        if not any(advancing):
+            for dst, old in zip(stacks, leaves):
+                dst[:, i].copy_(old)
+        else:
+            frame = frame_add(frame, 1)
+            new = _advance_lanes(reg, step_fn, state, leaves, batched, inputs_b[:, i],
+                                 status_b[:, i], frame, retention, fps)
+            if all(advancing):
+                for dst, src in zip(stacks, new):
+                    dst[:, i].copy_(src)
+            else:
+                if advancing not in masks:
+                    masks[advancing] = _lane_mask(advancing, dev)
+                mask = masks[advancing]
+                for dst, src, old in zip(stacks, new, leaves):
+                    keep = mask.view(m, *([1] * (src.dim() - 1)))
+                    torch.where(keep, src, old, out=dst[:, i])
+                new = [s[:, i] for s in stacks]
+            leaves = new
+            batched = True
+    if not batched:  # no lane advanced: every frame is the start state
+        leaves = [s[:, 0] for s in stacks] if k else [
+            a.expand(m, *a.shape) for a in leaves]
+    stacked = tree_unflatten(state, stacks)
+    return tree_unflatten(state, leaves), stacked, branch_checksums(reg, stacked)
+
+
+def make_speculate_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16):
+    """M speculative input branches from one state, in one call:
+    ``fn(state, inputs_branches [M, k, P, ...], status_branches [M, k, P],
+    start_frame) -> (finals[M], stacked[M, k], checksums[M, k, 2])``
+    (:func:`resim_branches`).  Pick the branch matching the inputs that
+    arrive with :func:`select_branch`."""
+
+    def fn(state, inputs_branches, status_branches, start_frame, _retire_unused=None):
+        staging.sanitizer().guard_donated(state, "speculate_fn")
+        return resim_branches(reg, step_fn, state, inputs_branches, status_branches,
+                              start_frame, retention, fps)
+
+    return fn
+
+
+def make_packed_speculate_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec,
+                             fps: int, retention: int = 16):
+    """:func:`make_speculate_fn` fed by ONE packed upload: the M candidate
+    branches ride an ``int8[M, depth + 1, W]`` buffer (a prefix row per
+    lane), split on the card by :func:`~.packing.unpack_seq`:
+    ``fn(state, packed: PackedUpload) -> (finals, stacked, checks)``."""
+
+    def fn(state, packed: PackedUpload):
+        staging.sanitizer().guard_donated(state, "packed_speculate_fn")
+        inputs_b, status_b = unpack_seq(spec, packed.rows)
+        return resim_branches(reg, step_fn, state, inputs_b, status_b,
+                              packed.start_frame, retention, fps)
+
+    return fn
+
+
+def make_canonical_branched_fn(reg: Registry, step_fn: StepFn, fps: int,
+                               retention: int = 16, k_max: int = 16,
+                               branches: int = 8):
+    """ONE fixed ``[branches, k_max]`` program for every dispatch, the
+    bit-determinism-safe speculation shape: ``fn(state, inputs[B, K, P,
+    ...], status[B, K, P], start_frame, n_real[B]) -> (finals[B],
+    stacked[B, K], checks[B, K, 2])``, ``n_real`` host ints.
+
+    Lane 0 carries the real inputs (its lane is the authoritative result);
+    lanes 1.. evaluate hedge candidates in the same call.  Lanes are
+    independent, so lane 0 computes what the canonical resim computes,
+    whatever the other lanes hold."""
+
+    def fn(state, inputs_b, status_b, start_frame, n_real):
+        staging.sanitizer().guard_donated(state, "branched_fn")
+        if tuple(inputs_b.shape[:2]) != (branches, k_max):
+            raise ValueError(f"the branched program takes [{branches}, {k_max}] "
+                             f"lanes x frames, not {list(inputs_b.shape[:2])}")
+        if isinstance(n_real, torch.Tensor):
+            n_real = n_real.tolist()
+        return resim_branches(reg, step_fn, state, inputs_b, status_b, start_frame,
+                              retention, fps, n_real=n_real)
+
+    return fn
+
+
+def select_branch(tree, idx: int):
+    """Lane ``idx`` of a branch-axis output (views)."""
+    return tree_map(lambda a: a[idx], tree)
+
+
+def slice_frame(stacked_states, i: int):
+    """The state after the ``(i + 1)``-th advance of a stacked resim output
+    (views)."""
+    return tree_map(lambda a: a[i], stacked_states)

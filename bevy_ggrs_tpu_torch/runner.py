@@ -37,14 +37,29 @@ The default dispatch path is the JAX runner's:
   N ticks' requests through one request pass, so consecutive advances
   fuse into one resim.
 
+- ``speculation=SpeculationConfig(...)`` (``ops/speculation.py``): every
+  tick whose last advance ran on a predicted input hedges it with M
+  candidate input rows in one branch-axis call (a draft), issued at the
+  seam after the tick's requests; a rollback whose corrected inputs were
+  hedged is served from that cache with zero resimulated frames (the hit
+  path of :meth:`GgrsRunner._service_rollback`), bit for bit what a plain
+  peer computes.  Under ``App(canonical_branches=B)`` every dispatch, a
+  plain runner's too, is the one ``[B, K]`` program fed by one upload
+  (``_dispatch_branched``), and the hedges ride its lanes.  A
+  runner with a cache never donates (the drafts read the pre-advance
+  world).  ``measure_rollback_service=True`` synchronizes the stream at
+  the servicing seams and records each rollback's service time by path
+  (hit, miss) for :meth:`GgrsRunner.stats`.
+
 It serves SyncTest, P2P (Python and native core) and spectator sessions.
-Not ported yet: megastep, speculation, telemetry and forensics reports (a
+Not ported yet: megastep, telemetry and forensics reports (a
 ``DesyncDetected`` is recorded in :attr:`GgrsRunner.events` only).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import Counter
 from typing import Callable, Dict, List, Optional
 
@@ -53,8 +68,18 @@ import torch
 
 from .app import App
 from .convert import to_numpy
-from .ops.packing import PackedUpload, pack_prefix, pack_row, prefix_words, repeat_last_row
+from .ops.packing import (
+    PackedUpload,
+    pack_prefix,
+    pack_row,
+    prefix_words,
+    repeat_last_row,
+    unpack_seq,
+)
+from .ops.resim import slice_frame
+from .ops.speculation import SpeculationCache, SpeculationConfig
 from .session.events import (
+    InputStatus,
     MismatchedChecksumError,
     NotSynchronizedError,
     PredictionThresholdError,
@@ -77,6 +102,7 @@ from .utils import staging
 from .utils.frames import NULL_FRAME, frame_add
 from .utils.mem import tree_device_bytes
 from .utils.staging import StagingBuffer, StagingQueue
+from .utils.tree import tree_map
 
 
 class GgrsRunner:
@@ -96,6 +122,8 @@ class GgrsRunner:
         pipeline: bool = True,
         packed: Optional[bool] = None,
         input_queue: bool = False,
+        speculation: Optional[SpeculationConfig] = None,
+        measure_rollback_service: bool = False,
     ):
         self.app = app
         self.read_inputs = read_inputs or (
@@ -135,6 +163,28 @@ class GgrsRunner:
         if coalesce_frames < 1:
             raise ValueError("coalesce_frames must be >= 1")
         self.coalesce_frames = coalesce_frames
+        if (speculation is not None and app.canonical_depth is not None
+                and app.canonical_branches is None):
+            raise ValueError(
+                "speculation under bit-determinism requires the canonical-"
+                "branched program: set App(canonical_branches=M+1) so hedges "
+                "run inside the same fixed [branches, depth] program every "
+                "peer runs"
+            )
+        self.spec_cache = (
+            SpeculationCache(app, speculation) if speculation is not None else None
+        )
+        # ordered cache-maintenance ops, ("inv", frame) invalidations and
+        # ("spec", src_fn, ring_handle, start_frame, inputs) hedges, recorded
+        # during request handling and applied in order by _flush_speculation
+        self._pending_speculate: list = []
+        self.cache_served_frames = 0  # rollback frames served from the cache
+        # measurement mode: a stream synchronize at the servicing seams, and
+        # each rollback's service time (ms) by path
+        self.measure_rollback_service = bool(measure_rollback_service)
+        self.rollback_service_ms: Dict[str, List[float]] = {"hit": [], "miss": []}
+        # pinned [B, K + 1, W] staging of the canonical-branched dispatch
+        self._stage_branched: Optional[StagingBuffer | StagingQueue] = None
         # rollback frequency and depth: the rollback-netcode health metric
         self.ticks = 0  # session ticks stepped
         self.rollbacks = 0
@@ -226,6 +276,11 @@ class GgrsRunner:
         self.confirmed = NULL_FRAME
         self.ring.clear()
         self._last_stacked = None
+        if self.spec_cache is not None:
+            # the new session's frames restart: no branch of the old one may
+            # serve them
+            self.spec_cache.clear()
+            self._pending_speculate = []
         if session is None:
             return
         # despawn-retirement safety (ops/resim.py): slots hard-freed at
@@ -381,12 +436,21 @@ class GgrsRunner:
         return out
 
     def _staging(self) -> list:
+        draft = self.spec_cache._stage if self.spec_cache is not None else None
         return [s for s in (self._stage_inputs, self._stage_status,
-                            self._stage_packed, self._packed_queue) if s is not None]
+                            self._stage_packed, self._packed_queue,
+                            self._stage_branched, draft) if s is not None]
 
     def stats(self) -> dict:
         """Runner health counters (rollback frequency and depth, resims,
-        uploads, donation, the pipeline's degradations, staging waits)."""
+        uploads, donation, the pipeline's degradations, staging waits, the
+        speculation cache's hits and misses, and the rollback service
+        times by path under ``measure_rollback_service``)."""
+        spec = self.spec_cache
+        service = {}
+        for path, ms in self.rollback_service_ms.items():
+            p50, p99 = np.percentile(ms, [50, 99]).tolist() if ms else (None, None)
+            service[path] = {"n": len(ms), "p50": p50, "p99": p99}
         return {
             "overflow": bool(self.world.overflow),
             "ticks": self.ticks,
@@ -407,6 +471,13 @@ class GgrsRunner:
             "confirmed": self.confirmed,
             "pipeline": self.pipeline,
             "pipeline_degrades": self.pipeline_degrades,
+            "speculation_hits": spec.hits if spec else 0,
+            "speculation_misses": spec.misses if spec else 0,
+            "speculation_cached_bytes": spec.cached_bytes if spec else 0,
+            "speculation_draft_dispatches": spec.draft_dispatches if spec else 0,
+            "speculation_host_uploads": spec.host_uploads if spec else 0,
+            "cache_served_frames": self.cache_served_frames,
+            "rollback_service_ms": service,
         }
 
     # -- per-session-type steps -----------------------------------------------
@@ -497,21 +568,91 @@ class GgrsRunner:
         # must land before observers treat the frame as final
         if self.on_confirmed is not None and self.confirmed != NULL_FRAME:
             self.on_confirmed(self.confirmed)
+        # drafts for the live frame ride the seam after the tick's requests,
+        # once every rollback in them has been serviced (and timed)
+        self._flush_speculation()
+
+    # -- speculation seams ----------------------------------------------------
+
+    def _flush_speculation(self) -> None:
+        """Apply the cache-maintenance ops recorded during request handling,
+        in recorded order: invalidations drop branches hedged from a
+        superseded state, hedges issue their drafts.  Deferred here so a
+        rollback's servicing does not carry next tick's drafts or last
+        tick's frees; called before a Load's servicing (so a hedge recorded
+        earlier in a coalesced list precedes the correction) and at the end
+        of :meth:`_handle_requests`."""
+        pending, self._pending_speculate = self._pending_speculate, []
+        for op in pending:
+            if op[0] == "inv":
+                self.spec_cache.invalidate_after(op[1])
+                continue
+            _, src_fn, hit_handle, start, inputs = op
+            if src_fn is None:
+                # a depth-1 full hit: the pre-advance source is the rollback
+                # target itself, the ring's stored form (views)
+                src = self.app.reg.load_state(_stored_world(hit_handle))
+            else:
+                src = src_fn()
+            self.spec_cache.speculate(src, start, inputs)
+        if pending and self.measure_rollback_service:
+            # measurement mode only: the drafts run in the slot that issued
+            # them, so no later servicing span waits on them
+            self.spec_cache.drain_drafts()
+
+    def _sync_for_measurement(self) -> None:
+        if self.app.device.type == "cuda":
+            torch.cuda.current_stream(self.app.device).synchronize()
 
     def _service_rollback(self, load: LoadRequest, run: List[GgrsRequest]) -> None:
-        """A LoadRequest plus its following Advance/Save run: the miss path
-        (no speculation cache), a ring load then one resim."""
-        self._load(load.frame, load.cause)
-        self._run_batch(run)
+        """A LoadRequest plus its following Advance/Save run.
 
-    def _load(self, frame: int, cause=None) -> None:
-        """LoadGameState: restore the ring snapshot for ``frame``.  The
-        rollback is counted against the handle ``cause`` blames
+        The speculation cache is consulted first: a hit (the corrected input
+        sequence was hedged) serves the rollback from cached branch states:
+        the ring pop is bookkeeping only, the restored state and every
+        resaved frame are views of the branch stack, and zero frames
+        resimulate for the served prefix.  A miss (or no cache) is a ring
+        load then one resim.  Under ``measure_rollback_service`` the stream
+        is synchronized before and after, and the span recorded by path."""
+        if self.spec_cache is not None:
+            self._flush_speculation()
+        if self.measure_rollback_service:
+            self._sync_for_measurement()
+        t0 = time.perf_counter()
+        adv = [r for r in run if isinstance(r, AdvanceRequest)]
+        got = None
+        if self.spec_cache is not None and adv:
+            got = self.spec_cache.lookup_seq(load.frame, np.stack([a.inputs for a in adv]))
+        if got is not None:
+            self._note_rollback(load.cause)
+            # bookkeeping-only rollback: pop the ring entries above the
+            # target and keep its stored handle; the world restore is the
+            # cache select inside _run_batch
+            stored, checksum = self.ring.rollback(load.frame)
+            self.frame = load.frame
+            self._pending_speculate.append(("inv", load.frame))
+            self._last_stacked = None
+            self._run_batch(run, hit=got, hit_pre=(stored, checksum))
+        else:
+            self._load(load.frame, load.cause)
+            self._run_batch(run)
+        if self.measure_rollback_service:
+            self._sync_for_measurement()
+            self.rollback_service_ms["hit" if got is not None else "miss"].append(
+                (time.perf_counter() - t0) * 1e3)
+
+    def _note_rollback(self, cause=None) -> None:
+        """Count one rollback against the handle ``cause`` blames
         (``"unknown"`` when the session names none), so
         :attr:`rollbacks_by_cause` sums to :attr:`rollbacks`."""
         self.rollbacks += 1
         blamed = cause.handle if cause is not None else None
         self.rollbacks_by_cause["unknown" if blamed is None else blamed] += 1
+
+    def _load(self, frame: int, cause=None) -> None:
+        """LoadGameState: restore the ring snapshot for ``frame`` (the
+        rollback counted by :meth:`_note_rollback`)."""
+        self._note_rollback(cause)
         stored, checksum = self.ring.rollback(frame)
         if isinstance(stored, LazySlice):
             if self.pipeline and stored._stacked is self._last_stacked:
@@ -520,13 +661,16 @@ class GgrsRunner:
                 # host wait (counted, as the JAX runner counts the tick its
                 # one-deep window degrades)
                 self.pipeline_degrades += 1
-            stored = tree_index(stored._stacked, stored._i)  # views, no copy
-        self.world = self.app.reg.load_state(stored)
+        self.world = self.app.reg.load_state(_stored_world(stored))
         self._world_checksum = checksum
         self.frame = frame
         # load_state returns a new world object, which only the runner holds
         self._world_donatable = True
         self._last_stacked = None
+        if self.spec_cache is not None:
+            # branches hedged from now-superseded predicted states must not
+            # serve later lookups; the drop runs at the next seam
+            self._pending_speculate.append(("inv", frame))
 
     # -- staging ----------------------------------------------------------------
 
@@ -599,35 +743,74 @@ class GgrsRunner:
 
     # -- one resim per run --------------------------------------------------------
 
-    def _run_batch(self, run: List[GgrsRequest]) -> None:
-        """Serve a maximal Advance/Save run with one resim call."""
+    def _run_batch(self, run: List[GgrsRequest], hit=None, hit_pre=None) -> None:
+        """Serve a maximal Advance/Save run with one resim call.
+
+        ``hit``/``hit_pre`` come from :meth:`_service_rollback` when the
+        rollback's corrected inputs were hedged: ``hit`` is the cache's
+        ``lookup_seq`` result serving the first ``skip`` advances (a fully
+        hedged rollback runs no resim at all) and ``hit_pre`` the ring's
+        ``(stored, checksum)`` of the rollback target, for leading saves and
+        a depth-1 re-hedge.  With a cache, the live frame's predicted
+        advance is hedged for the next tick either way."""
         app = self.app
         adv = [r for r in run if isinstance(r, AdvanceRequest)]
         k = len(adv)
         identity = app.reg.is_identity_strategy()
         pre_world, pre_checksum = self.world, self._world_checksum
         stacked = checks = None
+        skip = 0
+        cache_states = cache_bc = None
+        hit_handle = hit_checksum = None
+        if hit is not None:
+            # served from the cache (_service_rollback popped the ring and
+            # set the frame to the target): the world and its checksum are
+            # views of the verified branch
+            skip, cache_states, cache_checks = hit
+            cache_bc = BatchChecks(cache_checks, self.readbacks)
+            if self.pipeline:
+                self._rbq.start(cache_bc)
+            self.world = cache_states(skip - 1)
+            self._world_checksum = cache_bc.ref(skip - 1)
+            self.frame = frame_add(self.frame, skip)
+            self.cache_served_frames += skip
+            hit_handle, hit_checksum = hit_pre
+        # the state feeding the LAST advance (the next tick's hedge source),
+        # as a thunk resolved at _flush_speculation.  After a full hit the
+        # world is already post-advance: the source is the previous served
+        # frame, or for one served advance the rollback target itself
+        last_adv_src = (lambda w=self.world: w)
+        if hit is not None and skip == k:
+            last_adv_src = (lambda cs=cache_states, i=skip - 2: cs(i)) if skip >= 2 else None
+        use_branched = app.canonical_branches is not None
         # Donation drops the runner's reference to the pre-resim world; a
-        # leading (c == 0) save may still ring it, as no storage is reused
+        # leading (c == 0) save may still ring it, as no storage is reused.
+        # Never with a cache: a hedge reads the pre-advance world later.
         donated_fn = app.packed_resim_fn_donated if self.packed else app.resim_fn_donated
-        donate = (self.enable_donation and self._world_donatable and k > 0
+        donate = (self.enable_donation and self.spec_cache is None
+                  and self._world_donatable and k - skip > 0
                   and donated_fn is not None)
-        if k:
+        full_stack = None  # what the run's saves pin: the whole branch stack
+        if k - skip > 0:
+            run_adv = adv[skip:]
+            n = len(run_adv)
             self.resims += 1
-            self.rollback_frames += k - 1
-            if self.packed:
+            self.rollback_frames += n - 1
+            if use_branched:
+                final, stacked, checks, full_stack = self._dispatch_branched(run_adv)
+            elif self.packed:
                 depth = app.canonical_depth
-                if depth is not None and k > depth:
+                if depth is not None and n > depth:
                     raise ValueError(
-                        f"resim depth {k} exceeds canonical_depth {depth}; raise "
+                        f"resim depth {n} exceeds canonical_depth {depth}; raise "
                         "App(canonical_depth=...) above every session window"
                     )
-                packed = self._stage_packed_rows(adv, self.frame, k_pad=depth)
+                packed = self._stage_packed_rows(run_adv, self.frame, k_pad=depth)
                 fn = donated_fn if donate else app.packed_resim_fn
                 final, stacked, checks = fn(self.world, packed)
                 self._note_dispatch_uploads(1, packed)
             else:
-                inputs, status = self._stage_rows(adv)
+                inputs, status = self._stage_rows(run_adv)
                 fn = donated_fn if donate else app.resim_fn
                 final, stacked, checks = fn(self.world, inputs, status, self.frame)
                 self._note_dispatch_uploads(2)
@@ -638,31 +821,117 @@ class GgrsRunner:
                 # the checksum copy rides behind the resim; the next update
                 # harvests it while the card runs the next one
                 self._rbq.start(checks)
+            if self.spec_cache is not None and n >= 2:
+                last_adv_src = (lambda s=stacked, i=n - 2: slice_frame(s, i))
             self.world = final
             self._world_donatable = True  # a resim's final world is fresh
-            self._world_checksum = checks.ref(k - 1)
-            self.frame = frame_add(self.frame, k)
+            self._world_checksum = checks.ref(n - 1)
+            self.frame = frame_add(self.frame, n)
         materialize_saves = False
         if stacked is not None:
-            nbytes = self._stacked_bytes_by_k.get(k)
+            key = (use_branched, k - skip)
+            nbytes = self._stacked_bytes_by_k.get(key)
             if nbytes is None:
-                nbytes = self._stacked_bytes_by_k[k] = tree_device_bytes(stacked)
+                nbytes = self._stacked_bytes_by_k[key] = tree_device_bytes(
+                    stacked if full_stack is None else full_stack)
             materialize_saves = nbytes > self.ring_materialize_bytes
             # a guarded run's saves are cloned out, so no ring entry pins
             # this output and no load can read it
             self._last_stacked = None if materialize_saves else stacked
+        # a cache-served save pins its whole cache entry: the same guard
+        materialize_served = (hit is not None
+                              and cache_states.nbytes > self.ring_materialize_bytes)
         c = 0  # advances seen so far within the run
         for r in run:
             if isinstance(r, AdvanceRequest):
                 c += 1
                 continue
             if c == 0:
+                if hit is not None:
+                    # a leading save after a cache-served rollback: the ring
+                    # pop handed over the target's stored form; push it back
+                    self.ring.push(r.frame, (hit_handle, hit_checksum))
+                    r.cell.save(r.frame, hit_checksum)
+                    continue
                 state, cs_ref = pre_world, pre_checksum
+            elif c <= skip:
+                # a cache-served frame: a lazy handle into the branch stack
+                state, cs_ref = LazySlice(cache_states.stacked, c - 1), cache_bc.ref(c - 1)
+                if materialize_served:
+                    state = state.materialize()
+                    self.materialized_saves += 1
             else:
-                state, cs_ref = LazySlice(stacked, c - 1), checks.ref(c - 1)
+                state, cs_ref = LazySlice(stacked, c - 1 - skip), checks.ref(c - 1 - skip)
                 if materialize_saves:
                     state = state.materialize()
                     self.materialized_saves += 1
             stored = state if identity else app.reg.store_state(materialize(state))
             self.ring.push(r.frame, (stored, cs_ref))
             r.cell.save(r.frame, cs_ref)
+        # hedge the live frame: if its inputs were (partly) predicted, fan
+        # out candidate branches for the same transition at the next seam
+        # (the branched program hedged inside its own dispatch)
+        if (self.spec_cache is not None and not use_branched and k > 0
+                and np.any(adv[-1].status == InputStatus.PREDICTED)):
+            self._pending_speculate.append(
+                ("spec", last_adv_src, hit_handle, frame_add(self.frame, -1),
+                 adv[-1].inputs))
+
+    def _dispatch_branched(self, adv: List[AdvanceRequest]):
+        """One canonical ``[B, K]`` dispatch: lane 0 runs the real inputs;
+        when the last advance was predicted, hedge lanes replay the real
+        prefix and then hold a candidate input from the last transition on,
+        and their frames fill the cache (the entries come out of the same
+        program every peer runs).  The lanes' rows ride one pinned
+        ``int8[B, K + 1, W]`` upload.  Returns lane 0's ``(final, stacked,
+        checks)`` trimmed to the run, and the whole branch stack."""
+        app = self.app
+        lanes, depth = app.canonical_branches, app.canonical_depth
+        spec = app.packed_spec
+        k = len(adv)
+        if k > depth:
+            raise ValueError(f"resim depth {k} exceeds canonical_depth {depth}")
+        cands = None
+        if self.spec_cache is not None and np.any(adv[-1].status == InputStatus.PREDICTED):
+            cands = np.asarray(self.spec_cache.config.candidates_fn(adv[-1].inputs),
+                               app.input_dtype)[:lanes - 1]
+        if self._stage_branched is None:
+            # pipelined: two buffers in turn, so a dispatch never waits on
+            # the previous one's upload
+            make = lambda: spec.new_batch_buffer(lanes, depth)  # noqa: E731
+            self._stage_branched = (StagingQueue(make, device=app.device) if self.pipeline
+                                    else StagingBuffer(make, app.device))
+        buf = self._stage_branched.acquire()
+        pack_prefix(buf[0], self.frame, k)
+        for i, a in enumerate(adv):
+            pack_row(spec, buf[0], i, a.inputs, a.status)
+        repeat_last_row(buf[0], k, depth)
+        buf[1:] = buf[0]
+        n_real = [k] * lanes
+        m = 0 if cands is None else cands.shape[0]
+        zero_status = np.zeros(app.num_players, np.int8)
+        for b in range(1, 1 + m):
+            pack_prefix(buf[b], self.frame, depth)
+            pack_row(spec, buf[b], k - 1, cands[b - 1], zero_status)
+            repeat_last_row(buf[b], k, depth)  # hedges hold the candidate
+            n_real[b] = depth
+        rows = self._stage_branched.commit(buf)
+        self._note_dispatch_uploads(1, PackedUpload(rows, self.frame, k))
+        inputs_b, status_b = unpack_seq(spec, rows)
+        finals, stacked, checks = app.branched_fn(self.world, inputs_b, status_b,
+                                                  self.frame, n_real)
+        if m:
+            self.spec_cache.fill_from_branched(
+                frame_add(self.frame, k - 1), cands,
+                tree_map(lambda a: a[1:1 + m], stacked), checks[1:1 + m],
+                offset=k - 1, depth_eff=depth - (k - 1))
+        return (tree_map(lambda a: a[0], finals), tree_map(lambda a: a[0, :k], stacked),
+                checks[0, :k], stacked)
+
+
+def _stored_world(stored):
+    """A ring entry's stored world: a lazy save's frame as views of its
+    stack (no copy), anything else as it is."""
+    if isinstance(stored, LazySlice):
+        return tree_index(stored._stacked, stored._i)
+    return stored

@@ -2,6 +2,7 @@
 ``bevy_ggrs_tpu/snapshot``)."""
 
 from .checksum import (
+    branch_checksums,
     checksum_to_int,
     component_part,
     entity_part,
@@ -40,7 +41,8 @@ __all__ = [
     "active_mask", "active_count", "spawn", "spawn_many", "despawn",
     "despawn_where", "despawn_confirmed", "insert_component",
     "remove_component", "insert_resource", "remove_resource",
-    "world_checksum", "world_checksums", "checksum_to_int", "component_part",
+    "world_checksum", "world_checksums", "branch_checksums", "checksum_to_int",
+    "component_part",
     "resource_part", "entity_part", "mix32", "fmix32", "to_u32_lanes",
     "fold_inputs",
 ]

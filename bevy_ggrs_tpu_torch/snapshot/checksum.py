@@ -35,6 +35,7 @@ __all__ = [
     "MASK32", "mix32", "fmix32", "_fold_rows", "to_u32_lanes", "fold_inputs",
     "component_parts", "component_part",
     "resource_part", "entity_part", "world_checksum", "world_checksums",
+    "branch_checksums",
     "checksum_to_int",
 ]
 
@@ -194,6 +195,16 @@ def world_checksums(reg: Registry, stacked: WorldState) -> torch.Tensor:
             out = out ^ torch.stack(
                 [_resource_parts(reg, stacked, name, seed) for seed in SEEDS], dim=-1)
     return out
+
+
+def branch_checksums(reg: Registry, stacked_b: WorldState) -> torch.Tensor:
+    """Checksums ``[M, k, 2]`` of a branch-stacked ``[M, k, ...]`` world:
+    every leaf viewed as ``[M * k, ...]`` (a view of a contiguous stack),
+    one :func:`world_checksums` pass, the result viewed as ``[M, k, 2]`` —
+    one fold launch for all the lanes' frames."""
+    m, k = stacked_b.alive.shape[:2]
+    flat = tree_map(lambda a: a.reshape(m * k, *a.shape[2:]), stacked_b)
+    return world_checksums(reg, flat).view(m, k, 2)
 
 
 def world_checksum(reg: Registry, w: WorldState) -> torch.Tensor:

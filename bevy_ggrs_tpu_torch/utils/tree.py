@@ -1,8 +1,10 @@
 """Minimal tensor trees: dicts, lists, tuples and dataclasses of tensors.
 
 Stands in for ``jax.tree`` over the port's world and resource values.
-Leaves are visited in the order ``jax.tree.leaves`` uses (dict keys
-sorted), so a resource's lanes fold in the same order in both packages."""
+:func:`tree_leaves` visits leaves in the order ``jax.tree.leaves`` uses
+(dict keys sorted), so a resource's lanes fold in the same order in both
+packages; :func:`tree_flatten` and :func:`tree_unflatten` follow
+:func:`tree_map` (dict insertion order) and round-trip a tree."""
 
 from __future__ import annotations
 
@@ -36,3 +38,18 @@ def tree_leaves(tree: Any) -> List[Any]:
         return [x for f in dataclasses.fields(tree)
                 for x in tree_leaves(getattr(tree, f.name))]
     return [tree]
+
+
+def tree_flatten(tree: Any) -> List[Any]:
+    """Leaves of ``tree`` in :func:`tree_map`'s visiting order (dict
+    insertion order, unlike :func:`tree_leaves`), so
+    :func:`tree_unflatten` puts each leaf back in its own field."""
+    leaves: List[Any] = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+    """``template``'s structure with :func:`tree_flatten`'s ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)

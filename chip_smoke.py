@@ -72,24 +72,48 @@ and no result.  The phases:
                stress_soa 100k SyncTest at d=7 in both modes: zero
                mismatches, equal checksum streams, donation on the
                pipelined run;
-10. spectator — a box_game host pair streaming to a port
+10. speculation — the branch axis and the speculation cache: the fold
+               bit for bit on a branch-stacked stress_soa 1M x M=4 x
+               depth 8 stack and a box_game [B=9, K=8] branched stack;
+               one ``SpeculationCache.speculate`` at stress_soa 1M, M=4,
+               depth 8, each lane's states and checksums equal to
+               ``App.resim_fn`` on its inputs, its device kernels, host ms
+               and device ms beside a plain k=8 resim's, and zero ``vmap``
+               fallbacks; the JAX bench's speculation-service traffic
+               (stress_soa 65,536, 6 hops, input delay 1, inputs flipping
+               every 7 ticks, checksums compared every frame) on a hedged
+               and a plain port pair: zero desyncs, hits > 0, hit rate >
+               0.5, one packed upload per draft, one fold launch per resim
+               and per draft, the two pairs' confirmed checksums equal,
+               the fold bit for bit on the pairs' own resim and draft
+               stacks; service ms by path (p50, p99), cache-served
+               frames, peak memory; a canonical-branched box_game pair
+               (depth 10, 9 lanes, one peer hedging) against a plain
+               canonical pair, its loop under ``set_sync_debug_mode(
+               "error")`` with no forced readback, no staging wait and one
+               upload per dispatch, the fold bit for bit on its own
+               [9 x 10] stacks;
+               one ``branched_fn`` call at stress_soa 10,000 x 4 players,
+               B=16, K=8: lane 0 equal to the canonical resim, each hedge
+               lane to the canonical resim of its inputs;
+11. spectator — a box_game host pair streaming to a port
                ``SpectatorSession``: it reaches RUNNING and its checksum
                at each frame equals the host's confirmed checksum there;
-11. native  — a port ``NativeP2PSession`` peer against a port
+12. native  — a port ``NativeP2PSession`` peer against a port
                ``P2PSession`` peer, fixed_point on the card, over loopback
                UDP at input delay 0: the native peer steps first on a
                clock 10% fast, so it predicts the Python peer's flipping
                input and rolls back;
                both RUNNING, 120 frames, zero desyncs, equal confirmed
                checksums;
-12. result  — the kernels line, the card line, then
+13. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Every runner phase runs the runner's defaults unless it names a mode.
 Kernel launch counts are reset just before each driven path and read just
 after it; a path that did not launch the kernel fails.  Launches made to
 compare the kernel with its plain version are not counted.  The session
-phases (8 to 11) also hold the fold's output on the stacks their resims
+phases (8 to 12) also hold the fold's output on the stacks their resims
 produced against the plain version, after the counts are read.
 """
 
@@ -151,6 +175,21 @@ SIZES = {
     "pipeline_profile_frames": 30,
     "spectator_frames": 160,
     "native_frames": 120,
+    "spec_lanes": 4,
+    "spec_depth": 8,
+    "svc_entities": 65_536,
+    "svc_latency_hops": 6,
+    "svc_flip_ticks": 7,
+    "svc_warm": 60,
+    "svc_ticks": 150,
+    "branched_depth": 8,
+    "branched_lanes": 9,
+    "branched_pair_depth": 10,  # the JAX soak's; >= window 8 + 1
+    "branched_warm": 20,
+    "branched_frames": 120,
+    "branched_call_entities": 10_000,
+    "branched_call_players": 4,
+    "branched_call_lanes": 16,
 }
 
 
@@ -317,7 +356,11 @@ def device_profile(fn, calls: int) -> dict:
         us = next((float(getattr(e, a)) for a in ("self_device_time_total",
                                                    "self_cuda_time_total")
                    if hasattr(e, a)), 0.0)
-        events[e.key[:80]] = {"per_call": e.count / calls, "ms_per_call": us / 1e3 / calls}
+        # summed: kernels whose names share their first 80 characters
+        # (template instances) would overwrite each other's counts
+        slot = events.setdefault(e.key[:80], {"per_call": 0.0, "ms_per_call": 0.0})
+        slot["per_call"] += e.count / calls
+        slot["ms_per_call"] += us / 1e3 / calls
         device_us += us
     return {"events": events, "device_ms_per_call": device_us / 1e3 / calls,
             "host_ms_per_call": host_ms,
@@ -331,6 +374,54 @@ def on_device(x, dev) -> torch.Tensor:
     """A host array as a tensor on ``dev`` (set-up only: the resim takes
     device tensors and never copies from pageable host memory itself)."""
     return torch.as_tensor(x).to(dev)
+
+
+def flat_branches(stacked_b):
+    """A branch-stacked ``[M, k, ...]`` world viewed as ``[M * k, ...]``."""
+    from bevy_ggrs_tpu_torch.utils.tree import tree_map
+
+    m, k = stacked_b.alive.shape[:2]
+    return tree_map(lambda a: a.reshape(m * k, *a.shape[2:]), stacked_b)
+
+
+def branch_inputs(app, cands, depth: int):
+    """Each candidate row held for ``depth`` frames, statuses confirmed:
+    ``[M, depth, P]`` inputs and statuses on the app's device."""
+    inputs = np.repeat(np.asarray(cands, app.input_dtype)[:, None], depth, axis=1)
+    status = np.zeros(inputs.shape[:3], np.int8)
+    return on_device(inputs, app.device), on_device(status, app.device)
+
+
+def speculate_stack(app, world):
+    """The ``[M, depth, ...]`` stack of one ``speculate_fn`` call with the
+    service traffic's candidates (both pads over {0, 1})."""
+    from bevy_ggrs_tpu_torch import pad_candidates
+
+    cands = pad_candidates(2, [0, 1], [0, 1])(np.zeros(2, np.uint8))
+    inputs, status = branch_inputs(app, cands, SIZES["spec_depth"])
+    return app.speculate_fn(world, inputs, status, 0)[1]
+
+
+def branched_app(make_app, dev, lanes=None, depth=None):
+    """``make_app`` configured for the canonical-branched program."""
+    app = make_app()
+    app.canonical_depth = depth or SIZES["branched_depth"]
+    app.canonical_branches = lanes or SIZES["branched_lanes"]
+    return app
+
+
+def branched_stack(dev):
+    """A box_game ``[B, K]`` branched stack: lane 0 three real frames,
+    the hedge lanes all K."""
+    from bevy_ggrs_tpu_torch.models import box_game
+
+    app = branched_app(lambda: box_game.make_app(device=dev), dev)
+    lanes, depth = app.canonical_branches, app.canonical_depth
+    rng = np.random.default_rng(5)
+    inputs = on_device(rng.integers(0, 16, (lanes, depth, 2)).astype(np.uint8), dev)
+    status = on_device(np.zeros((lanes, depth, 2), np.int8), dev)
+    n_real = [3] + [depth] * (lanes - 1)
+    return app, app.branched_fn(app.init_state(), inputs, status, 0, n_real)[1]
 
 
 def stacked_of(app, world, k: int):
@@ -459,6 +550,12 @@ def kernel_cases(dev) -> dict:
     none = stress_soa.make_app(n_entities=n_small, checksum=False, device=dev)
     cases["no_checksummed_component"] = (
         none.reg, stacked_of(none, with_despawns(none, none.init_state(), 0.1), k))
+    m, depth = SIZES["spec_lanes"], SIZES["spec_depth"]
+    cases[f"stress_soa_1M_branches_M{m}_k{depth}"] = (
+        bench_app.reg, flat_branches(speculate_stack(bench_app, bench_world)))
+    app, stack = branched_stack(dev)
+    cases[f"box_game_branched_B{SIZES['branched_lanes']}_K{SIZES['branched_depth']}"] = (
+        app.reg, flat_branches(stack))
     return cases
 
 
@@ -800,24 +897,30 @@ def channel_pair(make_app, seed: int, **runner_kw):
 
 
 RESIM_FNS = ("resim_fn", "resim_fn_donated", "packed_resim_fn", "packed_resim_fn_donated")
+BRANCH_FNS = ("speculate_fn", "packed_speculate_fn", "branched_fn")
 
 
 def keep_stacks(runners) -> dict:
-    """``k -> (registry, stacked output)`` of the first resim of each depth
-    ``k`` the runners run (through any of the app's resim functions: plain,
-    donating, packed), kept to hold the fold against its plain version on
-    the main path's own tensors."""
+    """``shape -> (registry, stacked output)`` of the first call of each
+    output shape the runners make, kept to hold the fold against its plain
+    version on the main path's own tensors: through the app's resim
+    functions (plain, donating, packed; key ``(k,)``) and its branch-axis
+    ones (speculate, branched; key ``(M, k)``, the stack viewed as
+    ``[M * k, ...]``, as the fold sees it)."""
     kept = {}
     for r in runners:
         app = r.app
-        for name in RESIM_FNS:
+        for name in RESIM_FNS + BRANCH_FNS:
+            if name == "branched_fn" and app.canonical_branches is None:
+                continue
             fn = getattr(app, name)
             if fn is None:
                 continue
 
-            def keeping(*args, fn=fn, reg=app.reg):
+            def keeping(*args, fn=fn, reg=app.reg, branch=name in BRANCH_FNS):
                 out = fn(*args)
-                kept.setdefault(out[2].shape[0], (reg, out[1]))
+                kept.setdefault(tuple(out[2].shape[:-1]),
+                                (reg, flat_branches(out[1]) if branch else out[1]))
                 return out
 
             setattr(app, name, keeping)
@@ -826,17 +929,17 @@ def keep_stacks(runners) -> dict:
 
 def check_stacks(name: str, kept: dict) -> list:
     """The fold on each kept stack, bit for bit against its plain version;
-    returns the ``[k, N]`` shapes checked.  Run after the launch count is
+    returns the ``[F, N]`` shapes checked.  Run after the launch count is
     read: these launches are not the path's."""
     from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
 
     shapes = []
-    for k, (reg, stacked) in sorted(kept.items()):
+    for key, (reg, stacked) in sorted(kept.items()):
         args = fold_inputs(reg, stacked)
         got, want = cf.checksum_fold(*args), cf.checksum_fold_plain(*args)
         if not torch.equal(got, want):
             raise SystemExit(f"chip_smoke: {name}: checksum_fold disagrees with its "
-                             f"plain version on the path's k={k} resim output")
+                             f"plain version on the path's {list(key)} output")
         shapes.append(list(args[2].shape))
     if not shapes:
         raise SystemExit(f"chip_smoke: {name}: no resim output to check")
@@ -904,7 +1007,7 @@ def p2p_run(name: str, make_app, dev, seed: int) -> dict:
     if dev.type == "cuda" and launches != resims:
         raise SystemExit(f"chip_smoke: {name}: {launches} fold launches for "
                          f"{resims} resim calls")
-    if runners[1].rollbacks == 0 or max(kept) < 2 \
+    if runners[1].rollbacks == 0 or max(key[-1] for key in kept) < 2 \
             or min(r.frame for r in runners) < frames - 10:
         raise SystemExit(f"chip_smoke: {name}: no rollbacks or a short run: {result}")
     if any(result["desyncs"]) or not ring_equal or len(agreed) < frames // 2:
@@ -1291,6 +1394,359 @@ def phase_pipeline(dev, card: str) -> int:
     return launches
 
 
+# -- speculation: the branch axis, the cache, the canonical-branched program ------
+
+
+def trees_equal(a, b) -> bool:
+    from bevy_ggrs_tpu_torch.utils.tree import tree_flatten
+
+    return all(x.shape == y.shape and torch.equal(x, y)
+               for x, y in zip(tree_flatten(a), tree_flatten(b), strict=True))
+
+
+def check_fold_on(name: str, reg, stacked) -> list:
+    """The fold on one (flattened) stack, bit for bit against its plain
+    version; returns the ``[F, N]`` shape checked."""
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    args = fold_inputs(reg, stacked)
+    got, want = cf.checksum_fold(*args), cf.checksum_fold_plain(*args)
+    if not torch.equal(got, want):
+        raise SystemExit(f"chip_smoke: {name}: checksum_fold disagrees with its plain "
+                         "version on a branch stack")
+    return list(args[2].shape)
+
+
+def speculate_call(dev) -> dict:
+    """One draft at full width through ``SpeculationCache.speculate``: each
+    lane equal to ``App.resim_fn`` on its inputs, bit for bit; one fold
+    launch, zero vmap fallbacks; kernels, host and device ms beside a
+    plain k=8 resim's."""
+    import bevy_ggrs_tpu_torch.ops.resim as tr
+    from bevy_ggrs_tpu_torch import SpeculationCache, SpeculationConfig, pad_candidates
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.ops.resim import select_branch
+
+    n, m, depth = SIZES["bench_entities"], SIZES["spec_lanes"], SIZES["spec_depth"]
+    cuda = dev.type == "cuda"
+    app = stress_soa.make_app(n_entities=n, device=dev)
+    world = app.init_state()
+    candidates = pad_candidates(2, [0, 1], [0, 1])
+    cache = SpeculationCache(app, SpeculationConfig(candidates_fn=candidates, depth=depth,
+                                                    max_cached_frames=16))
+    used = np.zeros(2, np.uint8)
+    cache.speculate(world, 0, used)  # warm-up
+    sync(dev)
+    tr.vmap_fallbacks = 0
+    cf.launches = 0
+    t0 = time.perf_counter()
+    cache.speculate(world, 1, used)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    sync(dev)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches, fallbacks = cf.launches, tr.vmap_fallbacks
+    cands = candidates(used)
+    inputs, status = branch_inputs(app, cands, depth)
+    _, entry = cache._cache[1]
+    for b in range(m):
+        stacked_b, checks_b = entry[np.ascontiguousarray(cands[b]).tobytes()]
+        _, want, want_checks = app.resim_fn(world, inputs[b], status[b], 1)
+        if not trees_equal(stacked_b, want) or not torch.equal(checks_b, want_checks):
+            raise SystemExit(f"chip_smoke: speculate lane {b} differs from App.resim_fn "
+                             "on its inputs")
+    finals, stacked, checks = app.speculate_fn(world, inputs, status, 1)
+    for b in range(m):
+        final, _, _ = app.resim_fn(world, inputs[b], status[b], 1)
+        if not trees_equal(select_branch(finals, b), final):
+            raise SystemExit(f"chip_smoke: speculate lane {b}'s final world differs")
+    fold_shape = check_fold_on("speculate", app.reg, flat_branches(stacked)) if cuda else []
+    result = {"entities": n, "lanes": m, "depth": depth, "fold_launches": launches,
+              "vmap_fallbacks": fallbacks, "lanes_bit_exact": m,
+              "fold_bit_exact_on": fold_shape, "first_timed_call_host_ms": host_ms,
+              "first_timed_call_ms": call_ms, "host_uploads": cache.host_uploads,
+              "draft_dispatches": cache.draft_dispatches}
+    if cuda and launches != 1:
+        raise SystemExit(f"chip_smoke: one speculate launched the fold {launches} times")
+    if fallbacks:
+        raise SystemExit(f"chip_smoke: {fallbacks} vmap fallbacks on the speculate path")
+    if cache.host_uploads != cache.draft_dispatches:
+        raise SystemExit("chip_smoke: not one packed upload per draft")
+    if cuda:
+        one = on_device(np.zeros((depth, 2), np.uint8), dev)
+        plain = lambda: app.resim_fn(world, one, one.to(torch.int8), 1)  # noqa: E731
+        spec = lambda: app.speculate_fn(world, inputs, status, 1)  # noqa: E731
+        for name, fn in (("speculate", spec), ("plain_resim_k8", plain)):
+            prof = device_profile(fn, 3)
+            result[name] = {"ms": time_ms(fn, 5),
+                            "device_events_per_call": prof["device_events_per_call"],
+                            "device_ms_per_call": prof["device_ms_per_call"],
+                            "host_ms_per_call": prof["host_ms_per_call"],
+                            "profiler_saw_device": prof["profiler_saw_device"]}
+    return result
+
+
+def service_pair(dev, speculation=None) -> dict:
+    """The JAX bench's speculation-service traffic on a port pair:
+    stress_soa at ``svc_entities``, 6 hops, input delay 1, inputs flipping
+    every 7 ticks, checksums compared every frame, service times measured;
+    ``svc_warm`` ticks, then ``svc_ticks`` timed and counted."""
+    from bevy_ggrs_tpu_torch import DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    net = ChannelNetwork(seed=7, latency_hops=SIZES["svc_latency_hops"])
+    socks = [net.endpoint(f"s{i}") for i in range(2)]
+    runners = []
+    for i in range(2):
+        app = stress_soa.make_app(n_entities=SIZES["svc_entities"], device=dev)
+        session = (SessionBuilder.for_app(app).with_input_delay(1)
+                   .with_desync_detection_mode(DesyncDetection.on(1))
+                   .add_player(PlayerType.LOCAL, i)
+                   .add_player(PlayerType.REMOTE, 1 - i, f"s{1 - i}")
+                   .start_p2p_session(socks[i]))
+        count = [0]
+
+        def read_inputs(handles, count=count):
+            count[0] += 1
+            return {h: np.uint8((count[0] // SIZES["svc_flip_ticks"]) % 2) for h in handles}
+
+        runners.append(GgrsRunner(app, session, read_inputs=read_inputs,
+                                  speculation=speculation, measure_rollback_service=True))
+    seen = [record_confirmed(r) for r in runners]
+    sync_sessions(runners, net)
+    kept = keep_stacks(runners)
+    drive(runners, SIZES["svc_warm"], net)
+
+    def census():
+        caches = [r.spec_cache for r in runners if r.spec_cache is not None]
+        return {"resims": sum(r.resims for r in runners),
+                "drafts": sum(c.draft_dispatches for c in caches),
+                "draft_uploads": sum(c.host_uploads for c in caches),
+                "hits": sum(c.hits for c in caches),
+                "misses": sum(c.misses for c in caches),
+                "served": sum(r.cache_served_frames for r in runners),
+                "rollbacks": sum(r.rollbacks for r in runners),
+                "service": {p: sum((r.rollback_service_ms[p] for r in runners), [])
+                            for p in ("hit", "miss")}}
+
+    before = census()
+    sync(dev)
+    cf.launches = 0
+    t0 = time.perf_counter()
+    drive(runners, SIZES["svc_ticks"], net)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = cf.launches
+    after = census()
+    loop = {k: after[k] - before[k] for k in after if k != "service"}
+    service = {}
+    for path in ("hit", "miss"):
+        ms = after["service"][path][len(before["service"][path]):]
+        p50, p99 = np.percentile(ms, [50, 99]).tolist() if ms else (None, None)
+        service[path] = {"n": len(ms), "p50_ms": p50, "p99_ms": p99}
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    for r in runners:
+        r.finish()
+    agreed = agreed_checksums(seen)
+    stack_shapes = check_stacks("speculation service", kept) if cuda else []
+    lookups = loop["hits"] + loop["misses"]
+    return {"hedged": speculation is not None, "entities": SIZES["svc_entities"],
+            "ticks": SIZES["svc_ticks"], "seconds": dt,
+            "frames_per_s_per_peer": sum(r.frame for r in runners) / 2 / dt,
+            "loop": loop, "fold_launches": launches,
+            "hit_rate": loop["hits"] / lookups if lookups else None,
+            "rollback_service_ms": service, "cache_served_frames": loop["served"],
+            "max_memory_allocated_bytes": peak,
+            "desyncs": [len(desyncs(r)) for r in runners],
+            "confirmed_frames_agreed": len(agreed), "path_stacks_bit_exact": stack_shapes,
+            "agreed": agreed}
+
+
+def branched_pair(dev, hedge: bool) -> dict:
+    """A canonical-branched box_game pair (``branched_pair_depth`` x
+    ``branched_lanes``, the JAX soak's shape) on phase 8's traffic; with
+    ``hedge`` peer 1 (which mispredicts peer 0's flips) hedges eight
+    candidates in its lanes.  The timed loop runs under
+    ``set_sync_debug_mode("error")``, with no forced readback, no staging
+    wait and one upload per dispatch; the fold is held to its plain
+    version on the pair's own ``[B * K]`` stacks."""
+    from bevy_ggrs_tpu_torch import SpeculationConfig, pad_candidates
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+
+    cuda = dev.type == "cuda"
+    net = ChannelNetwork(latency_hops=SIZES["p2p_latency_hops"], loss=0.0, seed=6)
+    socks = [net.endpoint("p0"), net.endpoint("p1")]
+    spec = SpeculationConfig(candidates_fn=pad_candidates(2, [0], [0, 1, 2, 4, 8, 9, 10, 12]))
+    depth = SIZES["branched_pair_depth"]
+    runners = [p2p_peer(lambda: branched_app(lambda: box_game.make_app(device=dev), dev,
+                                             depth=depth),
+                        i, socks[i], f"p{1 - i}",
+                        speculation=spec if hedge and i == 1 else None) for i in range(2)]
+    seen = [record_confirmed(r) for r in runners]
+    sync_sessions(runners, net)
+    kept = keep_stacks(runners)
+    drive(runners, SIZES["branched_warm"], net)
+    frames = SIZES["branched_frames"]
+    before = counters(runners)
+    sync(dev)
+    cf.launches = 0
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        drive(runners, frames, net)
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = cf.launches
+    after = counters(runners)
+    loop = {k: after[k] - before[k] for k in after}
+    for r in runners:
+        r.finish()
+    agreed = agreed_checksums(seen)
+    stack_shapes = check_stacks("branched pair", kept) if cuda else []
+    st = runners[1].stats()
+    result = {"hedged": hedge, "frames": frames, "seconds": dt,
+              "sync_debug_mode": "error" if cuda else "default",
+              "frames_per_s_per_peer": loop["frames"] / 2 / dt,
+              "rollbacks": [r.rollbacks for r in runners], "resim_calls": loop["resims"],
+              "fold_launches": launches, "loop": loop,
+              "speculation_hits": st["speculation_hits"],
+              "speculation_misses": st["speculation_misses"],
+              "cache_served_frames": st["cache_served_frames"],
+              "desyncs": [len(desyncs(r)) for r in runners],
+              "confirmed_frames_agreed": len(agreed), "path_stacks_bit_exact": stack_shapes,
+              "agreed": agreed}
+    fail = []
+    if cuda and launches != loop["resims"]:
+        fail.append(f"{launches} fold launches for {loop['resims']} resims")
+    if loop["forced"] or loop["staging_deferred_blocks"]:
+        fail.append("the pipelined loop waited for the card")
+    if loop["host_uploads"] != loop["resims"]:
+        fail.append("not one upload per dispatch")
+    if any(result["desyncs"]) or runners[1].rollbacks == 0 or len(agreed) < frames // 2 \
+            or (hedge and st["speculation_hits"] == 0):
+        fail.append("out of sync, no rollback or no hit")
+    if fail:
+        raise SystemExit(f"chip_smoke: branched pair: {'; '.join(fail)}: "
+                         f"{ {k: v for k, v in result.items() if k != 'agreed'} }")
+    return result
+
+
+def branched_call(dev) -> dict:
+    """One ``branched_fn`` call at stress_soa ``branched_call_entities`` x
+    4 players, B=16, K=8: lane 0 (5 real frames) equal to the canonical
+    resim, each hedge lane to the canonical resim of its inputs."""
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.ops.resim import select_branch, slice_frame, trim_frames
+
+    n, players = SIZES["branched_call_entities"], SIZES["branched_call_players"]
+    lanes, depth = SIZES["branched_call_lanes"], SIZES["branched_depth"]
+
+    def make():
+        app = stress_soa.make_app(n_entities=n, canonical_depth=depth, device=dev)
+        app.num_players = players
+        return app
+
+    app, plain = branched_app(make, dev, lanes, depth), make()
+    world = app.init_state()
+    rng = np.random.default_rng(16)
+    ib = rng.integers(0, 16, (lanes, depth, players)).astype(np.uint8)
+    sb = rng.integers(0, 2, (lanes, depth, players)).astype(np.int8)
+    sb[1:, 4:] = 0
+    k0 = 5
+    n_real = [k0] + [depth] * (lanes - 1)
+    args = (world, on_device(ib, dev), on_device(sb, dev), 3, n_real)
+    sync(dev)
+    cf.launches = 0
+    finals, stacked, checks = app.branched_fn(*args)
+    launches = cf.launches
+    lane0 = plain.resim_fn(world, on_device(ib[0, :k0], dev), on_device(sb[0, :k0], dev), 3)
+    got0 = select_branch((finals, *trim_frames((stacked, checks), k0, axis=1)), 0)
+    if not trees_equal(got0, lane0):
+        raise SystemExit("chip_smoke: branched lane 0 differs from the canonical resim")
+    lane = select_branch(stacked, 0)
+    last = slice_frame(lane, k0 - 1)
+    if not all(trees_equal(slice_frame(lane, i), last) and torch.equal(checks[0, i], checks[0, k0 - 1])
+               for i in range(k0, depth)):
+        raise SystemExit("chip_smoke: branched lane 0 does not hold its state past n_real")
+    for b in range(1, lanes):
+        want = plain.resim_fn(world, on_device(ib[b], dev), on_device(sb[b], dev), 3)
+        if not trees_equal(select_branch((finals, stacked, checks), b), want):
+            raise SystemExit(f"chip_smoke: branched hedge lane {b} differs from the "
+                             "canonical resim of its inputs")
+    result = {"entities": n, "players": players, "lanes": lanes, "depth": depth,
+              "lane0_real_frames": k0, "fold_launches": launches, "lanes_bit_exact": lanes}
+    if dev.type == "cuda":
+        if launches != 1:
+            raise SystemExit(f"chip_smoke: a branched call launched the fold {launches} times")
+        result["fold_bit_exact_on"] = check_fold_on("branched", app.reg, flat_branches(stacked))
+        result["ms"] = time_ms(lambda: app.branched_fn(*args), 5)
+        result["lane0_useful_frames_per_s"] = k0 / result["ms"] * 1e3
+    return result
+
+
+def phase_speculation(dev, card: str) -> dict:
+    """The branch axis and the cache (see the module docstring); returns
+    the fold launches of the hedged service loop and of the hedged
+    canonical-branched pair."""
+    emit("speculation_call", card=card, **speculate_call(dev))
+    plain = service_pair(dev)
+    from bevy_ggrs_tpu_torch import SpeculationConfig, pad_candidates
+
+    hedged = service_pair(dev, SpeculationConfig(
+        candidates_fn=pad_candidates(2, [0, 1], [0, 1]), depth=SIZES["spec_depth"],
+        max_cached_frames=16))
+    a, b = hedged.pop("agreed"), plain.pop("agreed")
+    shared = sorted(set(a) & set(b))
+    fail = []
+    if len(shared) < SIZES["svc_ticks"] // 2 or any(a[f] != b[f] for f in shared):
+        fail.append(f"hedged and plain pairs' confirmed checksums differ ({len(shared)} shared)")
+    for r in (plain, hedged):
+        if any(r["desyncs"]) or r["loop"]["rollbacks"] == 0:
+            fail.append(f"desync or no rollback (hedged={r['hedged']})")
+    loop = hedged["loop"]
+    if loop["hits"] == 0 or not hedged["hit_rate"] > 0.5:
+        fail.append(f"hits {loop['hits']}, hit rate {hedged['hit_rate']}")
+    if loop["draft_uploads"] != loop["drafts"]:
+        fail.append("not one packed upload per draft")
+    if dev.type == "cuda":
+        if hedged["fold_launches"] != loop["resims"] + loop["drafts"]:
+            fail.append(f"{hedged['fold_launches']} fold launches for {loop['resims']} "
+                        f"resims and {loop['drafts']} drafts")
+        if plain["fold_launches"] != plain["loop"]["resims"]:
+            fail.append("the plain pair: not one fold launch per resim")
+    if fail:
+        raise SystemExit(f"chip_smoke: speculation service: {'; '.join(fail)}: "
+                         f"{[hedged, plain]}")
+    for r in (plain, hedged):
+        emit("speculation_service", card=card, pairs_agree_at_frames=len(shared), **r)
+    pairs = {hedge: branched_pair(dev, hedge) for hedge in (False, True)}
+    a, b = pairs[True].pop("agreed"), pairs[False].pop("agreed")
+    shared = sorted(set(a) & set(b))
+    if len(shared) < SIZES["branched_frames"] // 2 or any(a[f] != b[f] for f in shared):
+        raise SystemExit("chip_smoke: the hedged canonical-branched pair's confirmed "
+                         "checksums differ from the plain canonical pair's")
+    for r in pairs.values():
+        emit("speculation_branched_pair", card=card, pairs_agree_at_frames=len(shared), **r)
+    emit("speculation_branched_call", card=card, **branched_call(dev))
+    return {"speculation": hedged["fold_launches"],
+            "branched": pairs[True]["fold_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1305,6 +1761,7 @@ def main() -> int:
     phase_synctest(dev)
     by_path = {"resim": launches, "p2p": phase_p2p(dev),
                "pipeline": phase_pipeline(dev, card),
+               **phase_speculation(dev, card),
                "spectator": phase_spectator(dev), "native": phase_native(dev)}
     print(json.dumps({"kernels": [{
         "name": "checksum_fold",

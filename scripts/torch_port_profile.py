@@ -24,11 +24,24 @@ traces.  Two modes:
   ``PROFILE_TICKS`` ticks, the device-busy ms per tick, the idle share,
   the kernel launches per tick, and the host-to-device copies per tick
   (from pinned and from pageable memory) and device-to-host copies.
+- ``--service``: the rollback service time of a hedging pair, split by
+  the ring's memory guard.  The JAX bench's speculation-service traffic
+  as ``chip_smoke.py`` phase ``speculation`` drives it (``stress_soa`` at
+  65,536 entities unless ``--entities`` says otherwise, 6 hops, input
+  delay 1, inputs flipping every 7 ticks, checksums compared every frame;
+  both peers hedge both pads over {0, 1} at depth 8, 16 cached frames,
+  ``measure_rollback_service=True``).  The pair runs ``SERVICE_TICKS``
+  timed ticks with the runner's guard (``ring_materialize_bytes``) at its
+  64 MiB default and raised above any cache entry, in turns (default,
+  raised, raised, default), each on a fresh pair.  Prints one JSON line:
+  per run, the hit and miss service ms (p50, p99), the hits, the
+  cache-served frames and the saves cloned out per hit.
 
 Needs a CUDA card; it fails without one.
 
 Run from the repo root:
     python scripts/torch_port_profile.py [--entities N] [--p2p [--mode pipelined|sync]]
+    python scripts/torch_port_profile.py --service [--entities N]
 """
 
 import argparse
@@ -47,6 +60,8 @@ PROFILE_TICKS = 60  # traced ticks per peer
 WARMUP_TICKS = 30
 FLIP_FRAMES = 7
 MODES = {"pipelined": {}, "sync": {"pipeline": False, "packed": False}}
+SERVICE_TICKS = 150  # timed ticks, as chip_smoke.py's speculation phase
+SERVICE_WARMUP_TICKS = 60
 RESIM_FNS = ("resim_fn", "resim_fn_donated", "packed_resim_fn", "packed_resim_fn_donated")
 
 
@@ -231,23 +246,113 @@ def profile_p2p(entities: int, mode: str) -> dict:
     }
 
 
+def service_run(entities: int, guard_bytes: int) -> dict:
+    """One hedging pair on the speculation-service traffic with the ring
+    guard at ``guard_bytes``: service ms by path and the clones per hit."""
+    from bevy_ggrs_tpu_torch import (
+        DesyncDetection,
+        GgrsRunner,
+        PlayerType,
+        SessionBuilder,
+        SpeculationConfig,
+        pad_candidates,
+    )
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+    from bevy_ggrs_tpu_torch.session.events import DesyncDetected
+
+    net = ChannelNetwork(seed=7, latency_hops=6)
+    spec = SpeculationConfig(candidates_fn=pad_candidates(2, [0, 1], [0, 1]), depth=8,
+                             max_cached_frames=16)
+    runners = []
+    for i in range(2):
+        app = stress_soa.make_app(n_entities=entities, device="cuda")
+        session = (SessionBuilder.for_app(app).with_input_delay(1)
+                   .with_desync_detection_mode(DesyncDetection.on(1))
+                   .add_player(PlayerType.LOCAL, i)
+                   .add_player(PlayerType.REMOTE, 1 - i, f"s{1 - i}")
+                   .start_p2p_session(net.endpoint(f"s{i}")))
+        count = [0]
+
+        def read_inputs(handles, count=count):
+            count[0] += 1
+            return {h: np.uint8((count[0] // FLIP_FRAMES) % 2) for h in handles}
+
+        r = GgrsRunner(app, session, read_inputs=read_inputs, speculation=spec,
+                       measure_rollback_service=True)
+        r.ring_materialize_bytes = guard_bytes
+        runners.append(r)
+    for _ in range(5000):
+        net.deliver()
+        for r in runners:
+            r.update(0.0)
+        if all(r.session.current_state().value == "running" for r in runners):
+            break
+    else:
+        raise SystemExit("torch_port_profile: the sessions never synchronized")
+    _drive(net, runners, SERVICE_WARMUP_TICKS)
+
+    def census():
+        return {"hits": sum(r.spec_cache.hits for r in runners),
+                "misses": sum(r.spec_cache.misses for r in runners),
+                "served": sum(r.cache_served_frames for r in runners),
+                "cloned": sum(r.materialized_saves for r in runners),
+                "n": {p: sum(len(r.rollback_service_ms[p]) for r in runners)
+                      for p in ("hit", "miss")}}
+
+    before = census()
+    first = [{p: len(r.rollback_service_ms[p]) for p in ("hit", "miss")} for r in runners]
+    _drive(net, runners, SERVICE_TICKS)
+    torch.cuda.synchronize()
+    after = census()
+    service = {}
+    for p in ("hit", "miss"):
+        ms = sum((r.rollback_service_ms[p][f[p]:] for r, f in zip(runners, first)), [])
+        p50, p99 = np.percentile(ms, [50, 99]).tolist() if ms else (None, None)
+        service[p] = {"n": len(ms), "p50_ms": p50, "p99_ms": p99}
+    for r in runners:
+        r.finish()
+    hits = after["hits"] - before["hits"]
+    cloned = after["cloned"] - before["cloned"]
+    return {"ring_materialize_bytes": guard_bytes, "hits": hits,
+            "misses": after["misses"] - before["misses"],
+            "cache_served_frames": after["served"] - before["served"],
+            "saves_cloned": cloned, "saves_cloned_per_hit": cloned / hits if hits else None,
+            "rollback_service_ms": service,
+            "desyncs": sum(isinstance(e, DesyncDetected) for r in runners for e in r.events)}
+
+
+def profile_service(entities: int) -> dict:
+    default, raised = 64 * 2**20, 2**40
+    runs = [service_run(entities, g) for g in (default, raised, raised, default)]
+    if any(r["desyncs"] for r in runs):
+        raise SystemExit(f"torch_port_profile: a hedging pair desynced: {runs}")
+    return {"card": torch.cuda.get_device_name(0), "entities": entities,
+            "ticks": SERVICE_TICKS, "runs": runs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--entities", type=int, default=1_000_000)
+    ap.add_argument("--entities", type=int, default=None,
+                    help="stress_soa entities (1,000,000; 65,536 for --service)")
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--p2p", action="store_true",
                     help="profile a P2P tick of a stress_soa pair instead of a resim")
     ap.add_argument("--mode", choices=sorted(MODES), default="pipelined",
                     help="the runner's dispatch mode for --p2p")
+    ap.add_argument("--service", action="store_true",
+                    help="a hedging pair's rollback service time, ring guard on and raised")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
         return 1
-    if args.p2p:
-        print(json.dumps(profile_p2p(args.entities, args.mode)))
+    if args.service:
+        print(json.dumps(profile_service(args.entities or 65_536)))
+    elif args.p2p:
+        print(json.dumps(profile_p2p(args.entities or 1_000_000, args.mode)))
     else:
-        print(json.dumps(profile_resim(args.entities, args.k, args.calls)))
+        print(json.dumps(profile_resim(args.entities or 1_000_000, args.k, args.calls)))
     return 0
 
 

@@ -4,8 +4,11 @@ components and frame counts; the pass with no host sync and inside a CUDA
 graph; the entry points' CUDA default; a checksum ref's non-blocking read;
 a P2P pair on the card launching the fold once per resim; the pipelined,
 packed, donating tick with no host sync; a pinned staging buffer never
-rewritten before its upload's event; and the fold on a packed resim's
-stack.
+rewritten before its upload's event; the fold on a packed resim's stack;
+and speculation's branch axis: speculate lanes and canonical-branched
+lanes bit for bit against the plain and canonical resims on the card, the
+fold on a branch stack, and a hedged P2P pair with no host sync and no
+desync.
 
 Marked ``cuda``; each skips without a card.  This file imports neither JAX
 nor the JAX package, so it runs on a machine without JAX:
@@ -19,8 +22,18 @@ import numpy as np
 import pytest
 import torch
 
-from bevy_ggrs_tpu_torch import App, DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
-from bevy_ggrs_tpu_torch.models import fixed_point, stress_soa
+from bevy_ggrs_tpu_torch import (
+    App,
+    DesyncDetection,
+    GgrsRunner,
+    PlayerType,
+    SessionBuilder,
+    SpeculationConfig,
+    pad_candidates,
+    select_branch,
+)
+from bevy_ggrs_tpu_torch.models import box_game, fixed_point, stress_soa
+from bevy_ggrs_tpu_torch.ops import resim as tr
 from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
 from bevy_ggrs_tpu_torch.ops.packing import PackedUpload, pack_prefix, pack_row, prefix_words
 from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
@@ -28,8 +41,10 @@ from bevy_ggrs_tpu_torch.session.events import DesyncDetected
 from bevy_ggrs_tpu_torch.snapshot.lazy import BatchChecks, ReadbackStats, tree_index
 from bevy_ggrs_tpu_torch.utils import staging
 from bevy_ggrs_tpu_torch.utils.staging import StagingBuffer, TransferRaceError
+from bevy_ggrs_tpu_torch.utils.tree import tree_flatten, tree_map
 from bevy_ggrs_tpu_torch.snapshot import (
     WorldState,
+    branch_checksums,
     despawn_where,
     fold_inputs,
     remove_component,
@@ -383,3 +398,121 @@ def test_fold_bit_exact_on_packed_resim_stack(cuda):
     got = cf.checksum_fold(*args)
     assert torch.equal(got, cf.checksum_fold_plain(*args))
     assert torch.equal(checks, want)
+
+
+# -- speculation's branch axis on the card ---------------------------------------
+
+
+def _trees_equal(a, b):
+    return all(x.shape == y.shape and torch.equal(x, y)
+               for x, y in zip(tree_flatten(a), tree_flatten(b), strict=True))
+
+
+def _lane_inputs(app, lanes, depth, seed, dev):
+    rng = np.random.default_rng(seed)
+    ib = rng.integers(0, 16, (lanes, depth, app.num_players)).astype(np.uint8)
+    sb = rng.integers(0, 2, (lanes, depth, app.num_players)).astype(np.int8)
+    return torch.from_numpy(ib).to(dev), torch.from_numpy(sb).to(dev)
+
+
+@pytest.mark.parametrize("model", ["box_game", "stress_soa", "fixed_point"])
+def test_speculate_lanes_equal_resim_on_card(cuda, model):
+    app = {"box_game": lambda: box_game.make_app(num_players=4, capacity=64, device=cuda),
+           "stress_soa": lambda: stress_soa.make_app(n_entities=N, device=cuda),
+           "fixed_point": lambda: fixed_point.make_app(device=cuda)}[model]()
+    world = app.init_state()
+    ib, sb = _lane_inputs(app, 4, K, seed=1, dev=cuda)
+    tr.vmap_fallbacks = 0
+    cf.launches = 0
+    finals, stacked, checks = app.speculate_fn(world, ib, sb, 2)
+    assert cf.launches == 1 and tr.vmap_fallbacks == 0
+    for b in range(4):
+        want = app.resim_fn(world, ib[b], sb[b], 2)
+        assert _trees_equal(select_branch((finals, stacked, checks), b), want), b
+
+
+@pytest.mark.parametrize("model", ["box_game", "stress_soa"])
+def test_branched_lanes_equal_canonical_resim_on_card(cuda, model):
+    lanes, depth, k = 5, 8, 3
+
+    def make():
+        if model == "box_game":
+            return box_game.make_app(num_players=4, capacity=64, canonical_depth=depth,
+                                     device=cuda)
+        return stress_soa.make_app(n_entities=N, canonical_depth=depth, device=cuda)
+
+    app, plain = make(), make()
+    app.canonical_branches = lanes
+    world = app.init_state()
+    ib, sb = _lane_inputs(app, lanes, depth, seed=2, dev=cuda)
+    n_real = [k] + [depth] * (lanes - 1)
+    finals, stacked, checks = app.branched_fn(world, ib, sb, 6, n_real)
+    lane0 = plain.resim_fn(world, ib[0, :k], sb[0, :k], 6)
+    got0 = select_branch((finals, *tr.trim_frames((stacked, checks), k, axis=1)), 0)
+    assert _trees_equal(got0, lane0)
+    for i in range(k, depth):  # lane 0 holds its state past n_real
+        assert torch.equal(checks[0, i], checks[0, k - 1])
+    for b in range(1, lanes):
+        assert _trees_equal(select_branch((finals, stacked, checks), b),
+                            plain.resim_fn(world, ib[b], sb[b], 6)), b
+    facade = app.resim_fn(world, ib[0, :k], sb[0, :k], 6)
+    assert _trees_equal(facade, lane0)
+
+
+def test_fold_on_branch_stack_equals_plain(cuda):
+    app = stress_soa.make_app(n_entities=N + 3, device=cuda)
+    world = despawn_where(app.reg, app.init_state(),
+                          torch.from_numpy(np.random.default_rng(3).random(N + 3) < 0.1)
+                          .to(cuda), 0)
+    ib, sb = _lane_inputs(app, 3, K, seed=4, dev=cuda)
+    _, stacked, checks = app.speculate_fn(world, ib, sb, 0)
+    flat = tree_map(lambda a: a.reshape(3 * K, *a.shape[2:]), stacked)
+    names = [n for n, c in app.reg.components.items() if c.checksum]
+    args = fold_inputs(app.reg, flat, names)
+    got = cf.checksum_fold(*args)
+    assert torch.equal(got, cf.checksum_fold_plain(*args))
+    assert torch.equal(branch_checksums(app.reg, stacked), checks)
+
+
+@pytest.mark.parametrize("mode", ["fast", "canonical-branched"])
+def test_hedged_pair_makes_no_host_sync_and_never_desyncs(cuda, mode):
+    """Both peers hedge on the default path (pipelined; packed in fast
+    mode, the one [B, K + 1, W] upload in canonical-branched mode): the
+    steady loop runs under sync debug mode "error", with hits, no forced
+    read, no staging wait, one upload per resim and per draft, no
+    desync."""
+    spec = SpeculationConfig(candidates_fn=pad_candidates(2, [0, 1], [1, 8]), depth=4)
+
+    def make():
+        if mode == "fast":
+            return stress_soa.make_app(n_entities=N, device=cuda)
+        app = stress_soa.make_app(n_entities=N, canonical_depth=10, device=cuda)
+        app.canonical_branches = 5  # lane 0 and the four candidates
+        return app
+
+    net, runners = _flipping_pair(make, cuda, speculation=spec)
+    for _ in range(30):
+        net.deliver()
+        for r in runners:
+            r.update(1 / 60)
+    before = [r.stats() for r in runners]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(60):
+            net.deliver()
+            for r in runners:
+                r.update(1 / 60)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = [r.stats() for r in runners]
+    for r in runners:
+        r.finish()
+    for r, b, a in zip(runners, before, after):
+        assert a["readbacks"]["forced"] == b["readbacks"]["forced"]
+        assert a["staging_deferred_blocks"] == b["staging_deferred_blocks"]
+        assert a["host_uploads"] - b["host_uploads"] == \
+            a["device_dispatches"] - b["device_dispatches"]
+        assert r.spec_cache.host_uploads == r.spec_cache.draft_dispatches
+        assert a["donated_dispatches"] == 0
+    assert after[1]["speculation_hits"] > before[1]["speculation_hits"]
+    assert not [e for r in runners for e in r.events if isinstance(e, DesyncDetected)]
