@@ -6,7 +6,9 @@ resim call returning every intermediate state and checksum; the checksum
 fold is a CUDA kernel written for Hopper (``csrc/checksum_fold.cu``).
 Speculation fans M predicted remote-input branches out along a
 ``torch.func.vmap`` branch axis and serves a rollback whose corrected
-inputs were hedged from that cache (``ops/speculation.py``).  The
+inputs were hedged from that cache (``ops/speculation.py``).  A game
+server runs M lobbies over one resident ``[M, ...]`` world with
+:class:`BatchedRunner`, one call per wave (``ops/batch.py``).  The
 session/network layer (input queues, prediction, sync/quality/desync
 protocol, UDP transport) runs on the host, in Python or in the native C++
 core.
@@ -18,8 +20,11 @@ reference.  This package imports torch, never JAX, and nothing of
 """
 
 from .app import App
+from .batch_runner import BatchedRunner
+from .ops.batch import BucketedWaveExecutor, stack_worlds, unstack_world
 from .ops.resim import StepCtx, select_branch, slice_frame
 from .ops.speculation import SpeculationCache, SpeculationConfig, pad_candidates
+from .ops.variant_probe import VariantProbeReport, probe_program_variants
 from .runner import GgrsRunner
 from .session import (
     DesyncDetection,
@@ -42,6 +47,13 @@ from .session import (
     TcpNonBlockingSocket,
     UdpNonBlockingSocket,
 )
+from .snapshot.strategy import (
+    CloneStrategy,
+    CopyStrategy,
+    QuantizeStrategy,
+    ReflectStrategy,
+    Strategy,
+)
 from .utils.frames import NULL_FRAME
 
 __all__ = [
@@ -53,4 +65,7 @@ __all__ = [
     "NotSynchronizedError", "InvalidRequestError", "NetworkStats", "NULL_FRAME",
     "StepCtx", "select_branch", "slice_frame",
     "SpeculationConfig", "SpeculationCache", "pad_candidates",
+    "BatchedRunner", "BucketedWaveExecutor", "stack_worlds", "unstack_world",
+    "probe_program_variants", "VariantProbeReport",
+    "Strategy", "CopyStrategy", "CloneStrategy", "ReflectStrategy", "QuantizeStrategy",
 ]

@@ -161,6 +161,12 @@ class App:
         )
         return self
 
+    def register_hierarchy(self) -> "App":
+        """Enable the parent-link (``ChildOf`` analog) component and
+        recursive despawn (``snapshot/world.py``)."""
+        self.reg.register_hierarchy()
+        return self
+
     def set_step(self, fn: Callable[[WorldState, StepCtx], WorldState]) -> "App":
         """Set the simulation step (the user's ``GgrsSchedule`` systems)."""
         self._step = fn

@@ -5,7 +5,10 @@ package's ``WorldState`` and the port's have the same fields, leaves,
 dtypes and shapes.  Across the boundary a world travels as a mapping from
 field name to numpy arrays (``comps``, ``has``, ``res`` and
 ``res_present`` are dicts of them, a resource value a tree), so neither
-package imports the other.
+package imports the other.  Leaves cross as they are, whatever their
+leading axes and dtypes: a stacked ``[M, ...]`` many-worlds world, a
+stacked resim output, or the stored form of a lossy strategy (bfloat16
+leaves of ``QuantizeStrategy``, carried bit for bit).
 """
 
 from __future__ import annotations

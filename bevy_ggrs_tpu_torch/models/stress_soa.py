@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..app import App
+from ..snapshot.strategy import CopyStrategy, Strategy
 from ..snapshot.world import active_mask, spawn_many
 from ..utils.device import DeviceLike
 
@@ -49,16 +50,19 @@ def step(world, ctx):
 def make_app(n_entities: int = 10_000, capacity: int | None = None,
              fps: int = 60, checksum: bool = True, seed: int = 0,
              canonical_depth: int | None = None,
-             device: DeviceLike = None) -> App:
+             device: DeviceLike = None, strategy: Strategy = CopyStrategy) -> App:
     """Build the scalar-column benchmark App with n_entities pre-spawned
     (positions and velocities drawn from ``numpy.random.default_rng(seed)``,
-    the same draws as the JAX package's setup)."""
+    the same draws as the JAX package's setup).  ``strategy`` is every
+    column's snapshot strategy (``QuantizeStrategy()`` keeps the ring in
+    bf16)."""
     capacity = capacity or n_entities
     app = App(num_players=2, capacity=capacity, fps=fps,
               input_shape=(), input_dtype=np.uint8,
               canonical_depth=canonical_depth, device=device)
     for name in _COLS:
-        app.rollback_component(name, (), torch.float32, checksum=checksum)
+        app.rollback_component(name, (), torch.float32, checksum=checksum,
+                               strategy=strategy)
     app.set_step(step)
 
     def setup(world):

@@ -111,6 +111,30 @@ class PackedUpload(NamedTuple):
         return self.rows.numel()
 
 
+class PackedWave(NamedTuple):
+    """One many-worlds wave's argument (``ops/batch.py``): the uploaded
+    ``int8[M, k + 1, W]`` buffer, one prefix row per lane, byte for byte
+    the JAX package's batch buffer, and the lanes' advance counts as host
+    ints.  The start frames are not carried on the host: each lane's clock
+    is read from its prefix on the device (:func:`wave_starts`).  The
+    counts are the host's copy of the prefixes' ``n_real`` words, which
+    shape the masked program (which frames need a select)."""
+
+    rows: torch.Tensor
+    n_real: Tuple[int, ...]
+
+
+def wave_starts(rows: torch.Tensor) -> torch.Tensor:
+    """Every lane's start frame, int32 ``[M]``, read from the prefix rows
+    of an uploaded wave ``int8[M, k + 1, W]`` on its device (a view)."""
+    return rows[:, 0, :PREFIX_BYTES].view(torch.int32)[:, 0]
+
+
+def wave_n_real(rows: torch.Tensor) -> torch.Tensor:
+    """Every lane's advance count, int32 ``[M]``, from the same prefix."""
+    return rows[:, 0, :PREFIX_BYTES].view(torch.int32)[:, 1]
+
+
 # -- host-side packing (numpy, in place) -------------------------------------
 
 def pack_prefix(buf: np.ndarray, start_frame: int, n_real: int,

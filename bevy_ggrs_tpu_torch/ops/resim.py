@@ -51,6 +51,14 @@ lane by lane instead.  :func:`make_speculate_fn`,
 :func:`make_packed_speculate_fn` and :func:`make_canonical_branched_fn`
 wrap it as the JAX package's functions of those names.
 
+The lane axis (many worlds, ``ops/batch.py``): :func:`resim_lanes`
+runs the same ``vmap`` over an ``[M, ...]`` stacked world whose lanes are
+independent lobbies at their own frames.  Each lane's frame, retire
+horizon and time are computed on the device from an int32 ``[M]`` vector
+of start frames (:func:`lane_clocks`, read from the packed wave's prefix)
+and never read back; the solo and branch paths keep their host clock and
+their bits.
+
 Not ported: ``StepCtx.rng_key`` (no ported model reads it).
 """
 
@@ -76,15 +84,21 @@ class StepCtx:
     """Per-frame context handed to the user step function.
 
     ``inputs``/``input_status`` are the ``PlayerInputs`` analog (tensors on
-    the world's device); the scalars are host values, so a step can use
-    them in tensor arithmetic without an upload.  ``time_seconds`` and
-    ``delta_seconds`` are float32, as in the JAX package."""
+    the world's device).  On the solo and branch paths the clock is host
+    values (``frame`` and ``retire_frame`` ints, ``time_seconds`` a numpy
+    float32), so a step can use them in tensor arithmetic without an
+    upload.  On the lane path (many worlds, ``ops/batch.py``) every lane
+    runs its own clock: ``frame`` and ``retire_frame`` are int32 device
+    scalars (i32 wrap) and ``time_seconds`` a float32 device scalar, as in
+    the JAX package, so a step that must run there compares them with
+    tensor ops, not Python ``if``.  ``delta_seconds`` is always the host
+    float32 ``1 / fps``."""
 
     inputs: torch.Tensor  # [num_players, *input_shape]
     input_status: torch.Tensor  # int8[num_players] (InputStatus)
-    frame: int  # the frame being computed
-    retire_frame: int  # despawn-retirement horizon
-    time_seconds: np.float32  # GgrsTime total
+    frame: Any  # the frame being computed
+    retire_frame: Any  # despawn-retirement horizon
+    time_seconds: Any  # GgrsTime total
     delta_seconds: np.float32  # 1 / fps
 
 
@@ -103,21 +117,51 @@ def advance(
 ) -> WorldState:
     """One AdvanceWorld: despawn-retirement sweep, then the user step."""
     retire = frame_add(frame, -retention)
-    state = despawn_confirmed(reg, state, retire)
-    ctx = StepCtx(
+    return _advance_ctx(reg, step_fn, state, StepCtx(
         inputs=inputs,
         input_status=status,
         frame=frame,
         retire_frame=retire,
         time_seconds=np.float32(frame) / np.float32(fps),
         delta_seconds=np.float32(1.0 / fps),
-    )
+    ))
+
+
+def _advance_ctx(reg: Registry, step_fn: StepFn, state: WorldState,
+                 ctx: StepCtx) -> WorldState:
+    """:func:`advance` at a given clock (host values or device scalars)."""
+    state = despawn_confirmed(reg, state, ctx.retire_frame)
     state = step_fn(state, ctx)
     if not reg.is_identity_strategy():
         # a lossy store strategy makes the stored form canonical: round-trip
         # the live state so a resim from a snapshot matches the live pass
         state = reg.load_state(reg.store_state(state))
     return state
+
+
+_I32_SPAN = 1 << 32
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped into i32 range, as int32 (two's complement)."""
+    return (torch.remainder(x + (1 << 31), _I32_SPAN) - (1 << 31)).to(torch.int32)
+
+
+def lane_clocks(starts: torch.Tensor, k: int, retention: int,
+                fps: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every lane's clock for ``k`` advances from its own start frame, on
+    the device: ``(frame, retire_frame, time_seconds)``, each ``[M, k]``.
+
+    Frames are the i32-wrapping ``start + i + 1``, the retire horizon
+    ``frame - retention`` wraps too, and the time is the float32 division
+    ``float32(frame) / float32(fps)`` by a tensor, so it rounds as the
+    host's numpy (and JAX's ``astype(float32) / fps``) does: dividing by
+    a Python scalar may compute a reciprocal product on CUDA."""
+    steps = torch.arange(1, k + 1, dtype=torch.int64, device=starts.device)
+    frames = _wrap_i32(starts.to(torch.int64)[:, None] + steps)
+    retire = _wrap_i32(frames.to(torch.int64) - retention)
+    times = frames.to(torch.float32) / torch.full_like(frames, fps, dtype=torch.float32)
+    return frames, retire, times
 
 
 def _as_input(x: Any, device: torch.device) -> torch.Tensor:
@@ -322,31 +366,45 @@ _FALLBACK_WARNING = "There is a performance drop because we have not yet impleme
 
 def _advance_lanes(reg: Registry, step_fn: StepFn, template: WorldState, leaves: list,
                    batched: bool, inputs: torch.Tensor, status: torch.Tensor,
-                   frame: int, retention: int, fps: int) -> list:
+                   clock, retention: int, fps: int) -> list:
     """One :func:`advance` on every lane: ``torch.func.vmap`` over the
     world's leaves (batched on axis 0, or one state for all lanes), the
-    lanes' inputs and statuses.  Returns the new leaves, ``[M, ...]``."""
+    lanes' inputs and statuses.  ``clock`` is the host frame every lane
+    computes (the branch axis) or the lanes' own ``(frame, retire_frame,
+    time_seconds)`` device vectors (the lane axis, :func:`lane_clocks`).
+    Returns the new leaves, ``[M, ...]``."""
     global vmap_fallbacks
 
-    def one(lane_leaves, inp, st):
-        out = advance(reg, step_fn, tree_unflatten(template, lane_leaves), inp, st,
-                      frame, retention, fps)
-        flat = []
-        tree_map(lambda _, x: flat.append(x), template, out)
-        return flat
+    if isinstance(clock, tuple):
+        delta = np.float32(1.0 / fps)
 
-    lanes = torch.func.vmap(one, in_dims=(0 if batched else None, 0, 0))
+        def one(lane_leaves, inp, st, frame, retire, time_s):
+            out = _advance_ctx(reg, step_fn, tree_unflatten(template, lane_leaves),
+                               StepCtx(inp, st, frame, retire, time_s, delta))
+            return tree_flatten(out)
+
+        args = (leaves, inputs, status, *clock)
+    else:
+        def one(lane_leaves, inp, st):
+            out = advance(reg, step_fn, tree_unflatten(template, lane_leaves), inp, st,
+                          clock, retention, fps)
+            return tree_flatten(out)
+
+        args = (leaves, inputs, status)
+    in_dims = (0 if batched else None,) + (0,) * (len(args) - 1)
+    lanes = torch.func.vmap(one, in_dims=in_dims)
     torch._C._functorch._set_vmap_fallback_warning_enabled(True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         try:
-            new = lanes(leaves, inputs, status)
+            new = lanes(*args)
         except (RuntimeError, ValueError) as e:
             raise RuntimeError(
                 "the step failed under torch.func.vmap on the speculation branch "
-                "axis; a speculating app's step must batch (every op with a "
-                "batching rule, no in-place write of a batched value into an "
-                f"unbatched tensor, as spawn's index writes make): {e}"
+                "axis or the many-worlds lane axis; such a step must batch (every "
+                "op with a batching rule, no in-place write of a batched value "
+                "into an unbatched tensor, no host read of a lane's clock): "
+                f"{e}"
             ) from e
     for w in caught:
         if _FALLBACK_WARNING in str(w.message):
@@ -392,6 +450,35 @@ def resim_branches(
     ``[M, k, 2]``.  With ``n_real``, lane ``b`` advances its first
     ``n_real[b]`` frames and repeats its carried state (and checksum) after
     them, as :func:`resim_padded` does."""
+    return resim_lanes(reg, step_fn, state, inputs_b, status_b, int(start_frame),
+                       retention, fps, n_real, batched=False)
+
+
+def resim_lanes(
+    reg: Registry,
+    step_fn: StepFn,
+    state: WorldState,
+    inputs_b,  # [M, k, num_players, *input_shape]
+    status_b,  # int8[M, k, num_players]
+    clock,  # a host start frame for every lane, or int32[M] device starts
+    retention: int,
+    fps: int,
+    n_real: Optional[Sequence[int]] = None,  # host ints, one per lane
+    batched: bool = False,
+    n_real_dev: Optional[torch.Tensor] = None,  # the same counts, int32[M] on the device
+) -> Tuple[WorldState, WorldState, torch.Tensor]:
+    """The lane engine under :func:`resim_branches` and the many-worlds
+    waves (``ops/batch.py``).  ``state`` is one world for every lane, or
+    with ``batched=True`` an ``[M, ...]`` world (lane ``b`` starts from
+    row ``b``).  ``clock`` is a host int (every lane at the same frame:
+    the branch axis, whose bits are the solo resim's) or an int32 ``[M]``
+    tensor of per-lane start frames on the world's device, whose frames,
+    retire horizons and times are computed there (:func:`lane_clocks`)
+    and never read back.  ``n_real`` is a host decision, as in
+    :func:`resim_branches`: which frames need a select.  With
+    ``n_real_dev`` (the counts on the device, from a packed wave's
+    prefix) each select's lane mask is one compare on the device, so the
+    launches do not depend on which lanes hold."""
     dev = state.device
     inputs_b = _as_input(inputs_b, dev)
     status_b = _as_input(status_b, dev)
@@ -400,27 +487,36 @@ def resim_branches(
     if len(counts) != m:
         raise ValueError(f"n_real has {len(counts)} lanes, the inputs {m}")
     leaves = tree_flatten(state)
-    stacks = [torch.empty((m, k, *a.shape), dtype=a.dtype, device=a.device)
-              for a in leaves]
-    batched = False
+    stacks = [torch.empty((m, k, *(a.shape[1:] if batched else a.shape)), dtype=a.dtype,
+                          device=a.device) for a in leaves]
+    if isinstance(clock, (int, np.integer)):
+        clocks, frame = None, int(clock)
+    else:
+        clocks = lane_clocks(_as_input(clock, dev).to(torch.int32), k, retention, fps)
     masks = {}
-    frame = int(start_frame)
     for i in range(k):
         advancing = tuple(i < n for n in counts)
         if not any(advancing):
             for dst, old in zip(stacks, leaves):
                 dst[:, i].copy_(old)
         else:
-            frame = frame_add(frame, 1)
+            if clocks is None:
+                frame = frame_add(frame, 1)
+                lane_clock = frame
+            else:
+                lane_clock = tuple(c[:, i] for c in clocks)
             new = _advance_lanes(reg, step_fn, state, leaves, batched, inputs_b[:, i],
-                                 status_b[:, i], frame, retention, fps)
+                                 status_b[:, i], lane_clock, retention, fps)
             if all(advancing):
                 for dst, src in zip(stacks, new):
                     dst[:, i].copy_(src)
             else:
-                if advancing not in masks:
-                    masks[advancing] = _lane_mask(advancing, dev)
-                mask = masks[advancing]
+                if n_real_dev is not None:
+                    mask = n_real_dev > i
+                else:
+                    if advancing not in masks:
+                        masks[advancing] = _lane_mask(advancing, dev)
+                    mask = masks[advancing]
                 for dst, src, old in zip(stacks, new, leaves):
                     keep = mask.view(m, *([1] * (src.dim() - 1)))
                     torch.where(keep, src, old, out=dst[:, i])

@@ -187,8 +187,7 @@ class SpeculationCache:
         Returns ``(d, states_fn, checks)`` where d is the number of frames
         served: ``states_fn(i)`` yields the state after advance i (0-based,
         i < d, views) and ``checks[i]`` its checksum — or None on a miss.
-        ``states_fn.stacked`` is the branch's ``[depth, ...]`` stack and
-        ``states_fn.nbytes`` the device bytes its cache entry pins.  Matches
+        ``states_fn.stacked`` is the branch's ``[depth, ...]`` stack.  Matches
         only constant input prefixes (branches hold their candidate)."""
         got = self._cache.get(start_frame)
         if got is None:
@@ -210,7 +209,6 @@ class SpeculationCache:
             return slice_frame(stacked_b, i)
 
         states_fn.stacked = stacked_b
-        states_fn.nbytes = self._entry_bytes.get(start_frame, 0)
         return d, states_fn, checks_b
 
     def lookup(self, start_frame: int, inputs: np.ndarray) -> Optional[Tuple]:

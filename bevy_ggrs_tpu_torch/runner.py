@@ -32,7 +32,10 @@ The default dispatch path is the JAX runner's:
   world's tensors stays valid.
 - ``ring_materialize_bytes``: a resim whose stacked output exceeds it
   (64 MiB) has its saves cloned out of it, so the ring holds single frames
-  instead of pinning whole stacks (counted in ``materialized_saves``).
+  instead of pinning whole stacks (counted in ``materialized_saves``).  As
+  in the JAX runner, the decision rests on the resim's own stack: the
+  cache-served saves of a partial hit follow it, and a full hit (no
+  resim) keeps every save as a view of its cache entry.
 - ``coalesce_frames=N``: an update that owes several frames flushes up to
   N ticks' requests through one request pass, so consecutive advances
   fuse into one resim.
@@ -124,6 +127,7 @@ class GgrsRunner:
         input_queue: bool = False,
         speculation: Optional[SpeculationConfig] = None,
         measure_rollback_service: bool = False,
+        on_advance: Optional[Callable] = None,
     ):
         self.app = app
         self.read_inputs = read_inputs or (
@@ -133,6 +137,7 @@ class GgrsRunner:
         # a mismatch goes to on_mismatch; with none set it raises
         self.on_mismatch = on_mismatch
         self.on_confirmed = on_confirmed  # (frame) after each request batch
+        self.on_advance = on_advance  # (frame, inputs, status) per AdvanceFrame
         if initial_state is None:
             self.world = app.init_state()
         else:
@@ -758,6 +763,11 @@ class GgrsRunner:
         k = len(adv)
         identity = app.reg.is_identity_strategy()
         pre_world, pre_checksum = self.world, self._world_checksum
+        if self.on_advance is not None:
+            # every AdvanceFrame of the run, in frame order, whichever path
+            # serves it (resim, cache, branched program)
+            for i, a in enumerate(adv):
+                self.on_advance(frame_add(self.frame, i + 1), a.inputs, a.status)
         stacked = checks = None
         skip = 0
         cache_states = cache_bc = None
@@ -838,9 +848,6 @@ class GgrsRunner:
             # a guarded run's saves are cloned out, so no ring entry pins
             # this output and no load can read it
             self._last_stacked = None if materialize_saves else stacked
-        # a cache-served save pins its whole cache entry: the same guard
-        materialize_served = (hit is not None
-                              and cache_states.nbytes > self.ring_materialize_bytes)
         c = 0  # advances seen so far within the run
         for r in run:
             if isinstance(r, AdvanceRequest):
@@ -855,9 +862,10 @@ class GgrsRunner:
                     continue
                 state, cs_ref = pre_world, pre_checksum
             elif c <= skip:
-                # a cache-served frame: a lazy handle into the branch stack
+                # a cache-served frame: a view of the branch stack, cloned
+                # only where the run's own resim stack passes the guard
                 state, cs_ref = LazySlice(cache_states.stacked, c - 1), cache_bc.ref(c - 1)
-                if materialize_served:
+                if materialize_saves:
                     state = state.materialize()
                     self.materialized_saves += 1
             else:

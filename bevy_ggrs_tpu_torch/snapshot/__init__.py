@@ -15,7 +15,13 @@ from .checksum import (
     world_checksums,
 )
 from .ring import MissingSnapshotError, SnapshotRing, rollback_many
-from .strategy import CloneStrategy, CopyStrategy, ReflectStrategy, Strategy
+from .strategy import (
+    CloneStrategy,
+    CopyStrategy,
+    QuantizeStrategy,
+    ReflectStrategy,
+    Strategy,
+)
 from .world import (
     ComponentSpec,
     Registry,
@@ -25,6 +31,7 @@ from .world import (
     active_mask,
     despawn,
     despawn_confirmed,
+    despawn_recursive,
     despawn_where,
     insert_component,
     insert_resource,
@@ -36,10 +43,10 @@ from .world import (
 
 __all__ = [
     "SnapshotRing", "MissingSnapshotError", "rollback_many",
-    "Strategy", "CopyStrategy", "CloneStrategy", "ReflectStrategy",
+    "Strategy", "CopyStrategy", "CloneStrategy", "ReflectStrategy", "QuantizeStrategy",
     "WorldState", "Registry", "ComponentSpec", "ResourceSpec",
     "active_mask", "active_count", "spawn", "spawn_many", "despawn",
-    "despawn_where", "despawn_confirmed", "insert_component",
+    "despawn_where", "despawn_recursive", "despawn_confirmed", "insert_component",
     "remove_component", "insert_resource", "remove_resource",
     "world_checksum", "world_checksums", "branch_checksums", "checksum_to_int",
     "component_part",

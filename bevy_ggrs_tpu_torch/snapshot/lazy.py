@@ -28,21 +28,31 @@ interval frame once it is confirmed.
   the snapshot ring stores ``(stacked, i)`` handles; :func:`tree_index`
   is the slice as views (what a rollback loads), and
   :meth:`LazySlice.materialize` a device clone that no longer pins the
-  stacked buffer (the ring's memory guard).
+  stacked buffer (the ring's memory guard).  ``i`` may be a
+  ``(lobby, frame)`` pair into a wave's ``[M, k, ...]`` stack.
 
-Not ported yet (the batched runner, ROADMAP A9): ``plan_row_gather``,
-``fused_load_rows`` and ``fused_gather_rows``.
+The batched runner's tail (``batch_runner.py``): :func:`plan_row_gather`
+groups a wave's ``(target lane, LazySlice)`` rows by the stacked buffer
+that backs them, and :func:`fused_load_rows` / :func:`fused_gather_rows`
+serve the whole wave with one gather per source buffer and leaf, never
+one per lobby.  Their row indices ride ONE upload per call from pinned
+staging (:class:`RowIndexStager`), so a load wave neither waits for the
+card nor copies from pageable memory.  Nothing is written in place: the
+resident world's rows are replaced out of place (``index_copy``), since
+ring entries may share its tensors.
 """
 
 from __future__ import annotations
 
 import weakref
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..utils.tree import tree_map
+from ..utils.staging import StagingQueue
+from ..utils.tree import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclass
@@ -232,19 +242,27 @@ def readback_queue() -> ReadbackQueue:
     return _readback_queue
 
 
-def tree_index(stacked, i: int):
-    """``stacked``'s frame ``i``: every leaf's row ``i``, as views."""
+def tree_index(stacked, i):
+    """``stacked``'s frame ``i`` (an int, or a ``(lobby, frame)`` pair):
+    every leaf's row, as views."""
     return tree_map(lambda a: a[i], stacked)
+
+
+def tree_index2(stacked, b: int, i: int):
+    """Lobby ``b``'s frame ``i`` of a wave's ``[M, k, ...]`` stack (views)."""
+    return tree_index(stacked, (b, i))
 
 
 class LazySlice:
     """Frame ``i`` of a stacked resim output, not sliced yet: the ring
     stores these, and only the frame a rollback loads is sliced.  A live
-    handle keeps the whole ``[k, ...]`` stacked buffer alive."""
+    handle keeps the whole ``[k, ...]`` stacked buffer alive.  ``i`` may
+    be a ``(lobby, frame)`` pair into a wave's ``[M, k, ...]`` stack, or a
+    lobby of the resident ``[M, ...]`` world."""
 
     __slots__ = ("_stacked", "_i")
 
-    def __init__(self, stacked, i: int):
+    def __init__(self, stacked, i):
         self._stacked = stacked
         self._i = i
 
@@ -257,3 +275,137 @@ class LazySlice:
 def materialize(obj):
     """LazySlice -> concrete world; anything else passes through."""
     return obj.materialize() if isinstance(obj, LazySlice) else obj
+
+
+# -- the batched runner's mixed-source row gathers ------------------------------
+
+#: ``(buffer, lanes int64[n], frames int64[n] | None, targets int64[n])``
+RowGroup = Tuple[object, np.ndarray, Optional[np.ndarray], np.ndarray]
+
+
+def plan_row_gather(handles) -> Tuple[List[RowGroup], list]:
+    """Group ``(target_row, snapshot)`` pairs by the stacked buffer behind
+    each :class:`LazySlice`, for one fused gather (the JAX package's
+    function of that name).
+
+    Returns ``(groups, fallback)``: ``groups`` lists ``(buffer, lanes,
+    frames, targets)`` in first-seen order, ``frames`` ``None`` where the
+    handles index the buffer's leading axis only (a lobby of a resident
+    world); ``fallback`` holds the ``(target, snapshot)`` pairs that are
+    not lazy slices, for the caller's counted slow path."""
+    by, order, fallback = {}, [], []
+    for tgt, stored in handles:
+        if not isinstance(stored, LazySlice):
+            fallback.append((tgt, stored))
+            continue
+        lane, idx = stored._i if isinstance(stored._i, tuple) else (stored._i, None)
+        key = (id(stored._stacked), idx is None)
+        g = by.get(key)
+        if g is None:
+            g = by[key] = (stored._stacked, [], [], [])
+            order.append(key)
+        g[1].append(lane)
+        g[2].append(idx)
+        g[3].append(tgt)
+    groups = []
+    for key in order:
+        buf, lanes, idxs, tgts = by[key]
+        groups.append((buf, np.asarray(lanes, np.int64),
+                       None if key[1] else np.asarray(idxs, np.int64),
+                       np.asarray(tgts, np.int64)))
+    return groups, fallback
+
+
+class RowIndexStager:
+    """The row indices of a fused gather, uploaded as ONE int64 buffer from
+    pinned staging (two buffers in turn, fenced by CUDA events), grown
+    geometrically.  On the CPU the indices are taken as they are."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self._stage: Optional[StagingQueue] = None
+        self._cap = 0
+        self.uploads = 0
+
+    @property
+    def deferred_blocks(self) -> int:
+        return self._stage.deferred_blocks if self._stage is not None else 0
+
+    @property
+    def landed_free(self) -> int:
+        return self._stage.landed_free if self._stage is not None else 0
+
+    def upload(self, arrays: Sequence[np.ndarray]) -> List[torch.Tensor]:
+        """``arrays`` as int64 tensors on the device, split from one
+        upload."""
+        sizes = [len(a) for a in arrays]
+        total = sum(sizes)
+        if self.device.type == "cpu":
+            flat = torch.from_numpy(np.concatenate(arrays).astype(np.int64))
+        else:
+            if self._stage is None or self._cap < total:
+                cap = self._cap = max(total, 2 * self._cap, 64)
+                self._stage = StagingQueue(lambda: np.zeros(cap, np.int64),
+                                           device=self.device)
+            buf = self._stage.acquire()
+            buf[:total] = np.concatenate(arrays)
+            flat = self._stage.commit(buf[:total])
+            self.uploads += 1
+        return list(torch.split(flat, sizes))
+
+
+def _group_indices(groups: Sequence[RowGroup], stager: RowIndexStager):
+    """Each group's ``(lanes, frames | None, targets)`` on the device."""
+    arrays = []
+    for _buf, lanes, idxs, tgts in groups:
+        arrays += [lanes, tgts] + ([] if idxs is None else [idxs])
+    it = iter(stager.upload(arrays))
+    out = []
+    for _buf, _lanes, idxs, _tgts in groups:
+        lanes, tgts = next(it), next(it)
+        out.append((lanes, None if idxs is None else next(it), tgts))
+    return out
+
+
+def _gather(buf, lanes: torch.Tensor, idxs: Optional[torch.Tensor]):
+    if idxs is None:
+        return tree_map(lambda a: a[lanes], buf)
+    return tree_map(lambda a: a[lanes, idxs], buf)
+
+
+def _map_rows(transform: Optional[Callable], rows):
+    """``transform`` (a world -> world strategy hook) over every row of a
+    ``[n, ...]`` world, under ``torch.func.vmap``."""
+    if transform is None:
+        return rows
+
+    def one(leaves):
+        return tree_flatten(transform(tree_unflatten(rows, leaves)))
+
+    return tree_unflatten(rows, torch.func.vmap(one)(tree_flatten(rows)))
+
+
+def fused_load_rows(worlds, groups: Sequence[RowGroup], stager: RowIndexStager,
+                    transform: Optional[Callable] = None):
+    """Gather every group's rows out of its stacked source buffer and put
+    them at their target lanes of the resident ``[M, ...]`` worlds: the
+    mixed-source batched load.  One upload of indices, then per group and
+    leaf one gather and one out-of-place ``index_copy`` (no storage of
+    ``worlds`` is written).  ``transform`` (the strategy's ``load_state``)
+    runs over the gathered rows first."""
+    for (buf, *_), (lanes, idxs, tgts) in zip(groups, _group_indices(groups, stager)):
+        rows = _map_rows(transform, _gather(buf, lanes, idxs))
+        worlds = tree_map(lambda w, r, t=tgts: w.index_copy(0, t, r), worlds, rows)
+    return worlds
+
+
+def fused_gather_rows(groups: Sequence[RowGroup], stager: RowIndexStager,
+                      transform: Optional[Callable] = None):
+    """Gather every group's rows into one fresh ``[n, ...]`` stack, in the
+    groups' concatenated target order, and map ``transform`` (the
+    strategy's ``store_state``) over it: the batched runner's non-identity
+    saves, one stack per wave."""
+    parts = [_gather(buf, lanes, idxs)
+             for (buf, *_), (lanes, idxs, _t) in zip(groups, _group_indices(groups, stager))]
+    rows = parts[0] if len(parts) == 1 else tree_map(lambda *xs: torch.cat(xs), *parts)
+    return _map_rows(transform, rows)

@@ -20,7 +20,17 @@ Invariants kept from the reference (bevy_ggrs):
   at once;
 - spawn order is deterministic: first free slot, ids in call order.
 
-``despawn_recursive`` and the hierarchy component are not ported yet.
+The hierarchy (``Registry.register_hierarchy``) is one int32 column of
+parent slot indices; since a snapshot restores the allocator wholesale,
+slots are stable and no parent remap is needed on rollback.
+:func:`despawn_recursive` marks a subtree with a loop whose length is
+fixed by the capacity (pointer jumping), so it reads nothing back to the
+host and batches under ``torch.func.vmap``.
+
+Every write at a slot (``spawn``, ``despawn``, ``insert_component``,
+``remove_component``) is a select against ``arange(capacity) == slot``,
+not an index write, so a per-lane slot batches under ``vmap`` (the
+many-worlds lanes of ``ops/batch.py``).
 """
 
 from __future__ import annotations
@@ -133,6 +143,8 @@ class Registry:
     surface): components and resources opt in to snapshots, checksums
     (optionally with a custom hash) and a store/load strategy."""
 
+    PARENT = "child_of"  # reserved hierarchy component (ChildOf analog)
+
     def __init__(self, capacity: int):
         if capacity <= 0:
             raise ValueError("capacity must be positive")
@@ -170,6 +182,17 @@ class Registry:
             name, tuple(shape), dtype, default, checksum, hash_fn, strategy, required
         )
         return self
+
+    def register_hierarchy(self) -> "Registry":
+        """Register the parent-link component (``ChildOf`` analog): an
+        int32 parent slot per entity, -1 for none, checksummed."""
+        return self.register_component(
+            self.PARENT, (), torch.int32, default=-1, checksum=True
+        )
+
+    @property
+    def has_hierarchy(self) -> bool:
+        return self.PARENT in self.components
 
     def register_resource(
         self,
@@ -253,6 +276,36 @@ class Registry:
 # ---------------------------------------------------------------------------
 
 
+def _scalar(value: Any, dtype: torch.dtype, device):
+    """A Python scalar stays a kernel argument (no upload); anything else
+    becomes a tensor of ``dtype`` on ``device``."""
+    if isinstance(value, (bool, int, float)):
+        return value
+    return _to_tensor(value, dtype, device)
+
+
+def slot_mask(capacity: int, slot, device) -> torch.Tensor:
+    """``bool[capacity]`` true at ``slot`` only: the select that stands in
+    for an index write.  Negative slots count from the end and a slot out
+    of range selects nothing, as the JAX package's ``.at[slot].set`` does.
+    A tensor ``slot`` (a device scalar, or a lane's under ``vmap``) is
+    never read on the host."""
+    idx = torch.arange(capacity, dtype=torch.int32, device=device)
+    if isinstance(slot, torch.Tensor):
+        slot = slot.to(device=device, dtype=torch.int32)
+        return idx == torch.where(slot < 0, slot + capacity, slot)
+    slot = int(slot)
+    return idx == (slot + capacity if slot < 0 else slot)
+
+
+def _put(arr: torch.Tensor, sel: torch.Tensor, value) -> torch.Tensor:
+    """``arr`` with rows where ``sel`` holds set to ``value`` (a select)."""
+    m = sel.reshape((-1,) + (1,) * (arr.dim() - 1))
+    if isinstance(value, torch.Tensor):
+        value = _bits(value)
+    return torch.where(m, value, _bits(arr)).view(arr.dtype)
+
+
 def spawn(
     reg: Registry, w: WorldState, comps: Optional[Dict[str, Any]] = None
 ) -> Tuple[WorldState, torch.Tensor]:
@@ -269,34 +322,28 @@ def spawn(
     free = ~w.alive
     any_free = free.any()
     slot = free.to(torch.int32).argmax()  # first free slot (0 when full)
-
-    def put(arr, value):
-        # masked write: a full world must leave slot 0's live state intact
-        out = _bits(arr).clone()
-        if isinstance(value, torch.Tensor):
-            value = _bits(value)
-        out[slot] = torch.where(any_free, value, out[slot])
-        return out.view(arr.dtype)
+    # a full world writes nothing: slot 0's live state stays intact
+    sel = slot_mask(reg.capacity, slot, dev) & any_free
 
     new_comps = dict(w.comps)
     new_has = dict(w.has)
     for name, spec in reg.components.items():
         if name in comps:
             row = _to_tensor(comps[name], spec.dtype, dev)
-            new_comps[name] = put(new_comps[name], row)
-            new_has[name] = put(new_has[name], True)
+            new_comps[name] = _put(new_comps[name], sel, row)
+            new_has[name] = new_has[name] | sel
         elif spec.required:
-            new_comps[name] = put(new_comps[name], spec.default.to(dev))
-            new_has[name] = put(new_has[name], True)
+            new_comps[name] = _put(new_comps[name], sel, spec.default.to(dev))
+            new_has[name] = new_has[name] | sel
         else:
-            new_has[name] = put(new_has[name], False)
+            new_has[name] = new_has[name] & ~sel
     world = dataclasses.replace(
         w,
         comps=new_comps,
         has=new_has,
-        alive=put(w.alive, True),
-        rollback_id=put(w.rollback_id, w.next_id),
-        despawn_pending=put(w.despawn_pending, False),
+        alive=w.alive | sel,
+        rollback_id=torch.where(sel, w.next_id, w.rollback_id),
+        despawn_pending=w.despawn_pending & ~sel,
         next_id=w.next_id + any_free.to(torch.int32),
         overflow=w.overflow | ~any_free,
     )
@@ -351,11 +398,13 @@ def despawn(reg: Registry, w: WorldState, slot, frame) -> WorldState:
 
     The entity stays allocated, so a rollback to before ``frame`` revives
     it, but it leaves :func:`active_mask` at once."""
-    pending = w.despawn_pending.clone()
-    pending[slot] = True
-    dframe = w.despawn_frame.clone()
-    dframe[slot] = _to_tensor(frame, torch.int32, w.device)
-    return dataclasses.replace(w, despawn_pending=pending, despawn_frame=dframe)
+    sel = slot_mask(reg.capacity, slot, w.device)
+    return dataclasses.replace(
+        w,
+        despawn_pending=w.despawn_pending | sel,
+        despawn_frame=torch.where(sel, _scalar(frame, torch.int32, w.device),
+                                  w.despawn_frame),
+    )
 
 
 def despawn_where(reg: Registry, w: WorldState, mask: torch.Tensor, frame) -> WorldState:
@@ -365,9 +414,37 @@ def despawn_where(reg: Registry, w: WorldState, mask: torch.Tensor, frame) -> Wo
         w,
         despawn_pending=w.despawn_pending | mask,
         despawn_frame=torch.where(
-            mask, _to_tensor(frame, torch.int32, w.device), w.despawn_frame
+            mask, _scalar(frame, torch.int32, w.device), w.despawn_frame
         ),
     )
+
+
+def despawn_recursive(reg: Registry, w: WorldState, slot, frame) -> WorldState:
+    """Deferred despawn of ``slot`` and all its descendants (the JAX
+    package's ``despawn_recursive``; plain :func:`despawn` without a
+    hierarchy).
+
+    An entity is marked when its parent chain reaches ``slot`` through
+    links that are all valid (the entity alive, with a parent >= 0).  The
+    JAX package iterates that to a fixpoint with ``lax.while_loop``, which
+    here would read a flag back to the host every pass.  Instead pointer
+    jumping doubles the followed chain length each round: after ``r``
+    rounds ``hit[i]`` says whether ``slot`` lies within ``2**r`` valid
+    links of ``i``, and ``ceil(log2(capacity))`` rounds cover every
+    simple chain, so the loop's length is fixed by the capacity and the
+    marks equal the fixpoint's bit for bit."""
+    if not reg.has_hierarchy:
+        return despawn(reg, w, slot, frame)
+    cap = reg.capacity
+    parent = w.comps[Registry.PARENT].to(torch.int32)
+    valid = w.alive & w.has[Registry.PARENT] & (parent >= 0)  # link i -> parent
+    ptr = torch.clamp(parent, 0, cap - 1).long()
+    hit = slot_mask(cap, slot, w.device)
+    for _ in range((cap - 1).bit_length()):
+        hit = hit | (valid & hit[ptr])
+        valid = valid & valid[ptr]
+        ptr = ptr[ptr]
+    return despawn_where(reg, w, hit, frame)
 
 
 def despawn_confirmed(reg: Registry, w: WorldState, confirmed) -> WorldState:
@@ -396,21 +473,17 @@ def insert_component(
 ) -> WorldState:
     """Give ``slot`` the component ``name`` with ``value`` (presence set)."""
     spec = reg.components[name]
-    col = _bits(w.comps[name]).clone()
-    col[slot] = _bits(_to_tensor(value, spec.dtype, w.device))
-    col = col.view(spec.dtype)
-    has = w.has[name].clone()
-    has[slot] = True
+    sel = slot_mask(reg.capacity, slot, w.device)
+    col = _put(w.comps[name], sel, _to_tensor(value, spec.dtype, w.device))
     return dataclasses.replace(
-        w, comps={**w.comps, name: col}, has={**w.has, name: has}
+        w, comps={**w.comps, name: col}, has={**w.has, name: w.has[name] | sel}
     )
 
 
 def remove_component(reg: Registry, w: WorldState, slot, name: str) -> WorldState:
     """Clear ``slot``'s presence of component ``name`` (value retained)."""
-    has = w.has[name].clone()
-    has[slot] = False
-    return dataclasses.replace(w, has={**w.has, name: has})
+    sel = slot_mask(reg.capacity, slot, w.device)
+    return dataclasses.replace(w, has={**w.has, name: w.has[name] & ~sel})
 
 
 def insert_resource(reg: Registry, w: WorldState, name: str, value) -> WorldState:

@@ -37,7 +37,11 @@ and no result.  The phases:
                4096-entity stress_soa resim is held to the CPU's states;
 7. synctest — ``GgrsRunner`` + ``SyncTestSession`` at check_distance 7 with
                flipping inputs: box_game and fixed_point for 300 frames,
-               stress_soa at 100k entities for 120 frames; zero mismatches;
+               stress_soa at 100k entities for 120 frames, a hierarchy of
+               1,000 3-level chains with ``despawn_recursive`` in the step
+               (300 frames; the despawned subtrees counted), stress_soa
+               100k under ``QuantizeStrategy`` (bf16 ring, 120 frames);
+               zero mismatches;
 8. p2p      — pairs of port runners with ``P2PSession``s over a
                ``ChannelNetwork`` (3 hops, no loss), input delay 1,
                prediction window 8, checksums compared every frame; peer
@@ -96,24 +100,52 @@ and no result.  The phases:
                one ``branched_fn`` call at stress_soa 10,000 x 4 players,
                B=16, K=8: lane 0 equal to the canonical resim, each hedge
                lane to the canonical resim of its inputs;
-11. spectator — a box_game host pair streaming to a port
+11. batched — the many-worlds server: (a) first a full and a ragged
+               wave of 8 lanes of a clock-reading app and of fixed_point,
+               starts straddling I32_MAX, each lane from its own world:
+               every lane bit-equal to the solo resim of its own frames;
+               then packed exact waves of 16
+               lobbies x stress_soa 10,000 and 64 x 65,536, k=8, starts
+               spread (one lane straddling I32_MAX), lanes from four
+               distinct worlds: every lane bit-equal
+               to a solo ``App.resim_fn``, one fold launch per wave, the
+               fold bit-exact on the wave's ``[M·k, N]`` stack;
+               lobby-frames/s (median and spread of 5 reps x 30 chained
+               waves), device events per wave, busy and idle shares;
+               (b) a ``BatchedRunner`` over M=4 then M=16 SyncTest lobbies
+               of ``stress.make_app(64, capacity=64)`` at d=2: kernels,
+               copies and fills per steady tick (8 after 4 of warm-up)
+               equal at both M; (c) 8 P2P pairs (16 lobbies) of stress_soa
+               10,000, then 8 of fixed_point, in one BatchedRunner each
+               (3 hops, input delay 1, window 8, checksums every frame,
+               peer 0 flipping every 7 frames offset per pair), 240
+               ticks under ``set_sync_debug_mode("error")``: zero desyncs,
+               confirmed checksums equal to the same pairs on solo
+               runners, fold launches = waves, zero fallback load rows,
+               one upload per wave, no forced readback, no staging wait;
+               (d) (c)'s stress_soa and fixed_point traffic with
+               idle-lane drafts (and 16 lobbies waiting for players, whose
+               lanes the drafts fill): hits > 0, confirmed checksums equal
+               to (c)'s, the branch caches pinning no more bytes than
+               their entries hold; (c) and (d) report peak device memory;
+12. spectator — a box_game host pair streaming to a port
                ``SpectatorSession``: it reaches RUNNING and its checksum
                at each frame equals the host's confirmed checksum there;
-12. native  — a port ``NativeP2PSession`` peer against a port
+13. native  — a port ``NativeP2PSession`` peer against a port
                ``P2PSession`` peer, fixed_point on the card, over loopback
                UDP at input delay 0: the native peer steps first on a
                clock 10% fast, so it predicts the Python peer's flipping
                input and rolls back;
                both RUNNING, 120 frames, zero desyncs, equal confirmed
                checksums;
-13. result  — the kernels line, the card line, then
+14. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Every runner phase runs the runner's defaults unless it names a mode.
 Kernel launch counts are reset just before each driven path and read just
 after it; a path that did not launch the kernel fails.  Launches made to
 compare the kernel with its plain version are not counted.  The session
-phases (8 to 12) also hold the fold's output on the stacks their resims
+phases (8 to 13) also hold the fold's output on the stacks their resims
 produced against the plain version, after the counts are read.
 """
 
@@ -190,6 +222,17 @@ SIZES = {
     "branched_call_entities": 10_000,
     "branched_call_players": 4,
     "branched_call_lanes": 16,
+    "wave_cells": ((16, 10_000), (64, 65_536)),  # lobbies x stress_soa entities
+    "wave_reps": 5,
+    "wave_iters": 30,
+    "flat_warm": 4,
+    "flat_ticks": 8,
+    "server_pairs": 8,
+    "server_entities": 10_000,
+    "server_frames": 240,
+    "server_spec_depth": 8,
+    "hierarchy_chains": 1000,
+    "hierarchy_levels": 3,
 }
 
 
@@ -776,7 +819,10 @@ def synctest(app, frames: int, check_distance: int = 7, **runner_kw) -> dict:
         raise SystemExit("chip_smoke: the SyncTest run never launched the fold")
     if runner.frame != frames or session.pending_comparisons() != 0:
         raise SystemExit("chip_smoke: SyncTest run ended short or uncompared")
+    from bevy_ggrs_tpu_torch.snapshot import active_count
+
     return {"frames": frames, "check_distance": check_distance,
+            "active_entities": int(active_count(runner.world)),
             "frames_per_s": frames / dt, "seconds": dt, "rollbacks": runner.rollbacks,
             "resimulated_frames": runner.rollback_frames,
             "kernel_launches": cf.launches, "mismatches": 0,
@@ -785,7 +831,48 @@ def synctest(app, frames: int, check_distance: int = 7, **runner_kw) -> dict:
             "final_checksum": hex(runner.checksum), "stream": [ref() for ref in refs]}
 
 
+def hierarchy_app(dev):
+    """``BASELINE.md`` config 4: 1,000 parent/child chains (3 levels) whose
+    entities age every frame; every 25th frame ``despawn_recursive`` takes
+    one chain's root and its subtree (the slot is chosen by the frame)."""
+    from bevy_ggrs_tpu_torch import App
+    from bevy_ggrs_tpu_torch.snapshot import (
+        Registry,
+        active_mask,
+        despawn_recursive,
+        spawn_many,
+    )
+
+    chains, levels = SIZES["hierarchy_chains"], SIZES["hierarchy_levels"]
+    app = App(num_players=2, capacity=chains * levels, device=dev)
+    app.register_hierarchy()
+    app.rollback_component("age", (), torch.int32, checksum=True)
+
+    def step(world, ctx):
+        m = active_mask(world) & world.has["age"]
+        world = dataclasses.replace(world, comps={
+            **world.comps, "age": torch.where(m, world.comps["age"] + 1, world.comps["age"])})
+        if ctx.frame % 25 == 0:
+            root = (ctx.frame // 25) % chains
+            world = despawn_recursive(app.reg, world, root, ctx.frame)
+        return world
+
+    def setup(world):
+        for level in range(levels):
+            parents = (torch.arange(chains, dtype=torch.int32) + (level - 1) * chains
+                       if level else torch.full((chains,), -1, dtype=torch.int32))
+            world = spawn_many(app.reg, world, {
+                Registry.PARENT: parents.to(dev),
+                "age": torch.zeros(chains, dtype=torch.int32, device=dev)}, count=chains)
+        return world
+
+    app.set_step(step)
+    app.set_setup(setup)
+    return app
+
+
 def phase_synctest(dev) -> None:
+    from bevy_ggrs_tpu_torch import QuantizeStrategy
     from bevy_ggrs_tpu_torch.models import box_game, fixed_point, stress_soa
 
     runs = {
@@ -795,7 +882,18 @@ def phase_synctest(dev) -> None:
         "stress_soa_100k": synctest(
             stress_soa.make_app(n_entities=SIZES["synctest_stress_entities"], device=dev),
             SIZES["synctest_stress_frames"]),
+        "hierarchy_1k_chains": synctest(hierarchy_app(dev), SIZES["synctest_frames"]),
+        "stress_soa_100k_quantized": synctest(
+            stress_soa.make_app(n_entities=SIZES["synctest_stress_entities"], device=dev,
+                                strategy=QuantizeStrategy()),
+            SIZES["synctest_stress_frames"]),
     }
+    chains, levels = SIZES["hierarchy_chains"], SIZES["hierarchy_levels"]
+    taken = (SIZES["synctest_frames"] // 25) * levels  # subtrees despawned so far
+    if runs["hierarchy_1k_chains"]["active_entities"] != chains * levels - taken:
+        raise SystemExit(f"chip_smoke: the hierarchy SyncTest left "
+                         f"{runs['hierarchy_1k_chains']['active_entities']} entities, "
+                         f"not {chains * levels - taken}")
     for name, r in runs.items():
         r.pop("stream")
         emit("synctest", model=name, **r)
@@ -1747,6 +1845,469 @@ def phase_speculation(dev, card: str) -> dict:
             "branched": pairs[True]["fold_launches"]}
 
 
+# -- many worlds: waves, the BatchedRunner, idle-lane drafts ----------------------
+
+
+def wave_buffer(app, starts, k: int, seed: int):
+    """A packed wave ``int8[M, k + 1, W]``: lane ``b`` starts at
+    ``starts[b]`` and advances ``k`` frames on seeded inputs; returns the
+    host buffer and the inputs and statuses on the app's device."""
+    from bevy_ggrs_tpu_torch.ops.packing import pack_prefix, pack_row
+
+    spec = app.packed_spec
+    m = len(starts)
+    rng = np.random.default_rng(seed)
+    inputs = rng.integers(0, 16, (m, k, app.num_players)).astype(app.input_dtype)
+    status = np.zeros((m, k, app.num_players), np.int8)
+    buf = spec.new_batch_buffer(m, k)
+    for b in range(m):
+        pack_prefix(buf[b], starts[b], k)
+        for i in range(k):
+            pack_row(spec, buf[b], i, inputs[b, i], status[b, i])
+    return buf, on_device(inputs, app.device), on_device(status, app.device)
+
+
+def wave_throughput(dev, lobbies: int, entities: int, card: str) -> dict:
+    """Part (a): ``lobbies`` stress_soa worlds x k=8 through the executor's
+    exact full-wave program, at spread per-lane start frames (the last lane
+    straddles I32_MAX), lane ``b`` from the init world advanced ``b % 4``
+    frames: every lane bit-equal to a solo resim of its own world, one fold
+    launch per wave, the fold bit-exact on the wave's ``[M·k, N]`` stack;
+    lobby-frames/s (median and spread of 5 reps x 30 chained waves),
+    device events per wave and the device's busy and idle shares."""
+    from bevy_ggrs_tpu_torch import BucketedWaveExecutor, stack_worlds, unstack_world
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.ops import resim as R
+    from bevy_ggrs_tpu_torch.utils.mem import tree_device_bytes
+
+    k = SIZES["bench_k"]
+    app = stress_soa.make_app(n_entities=entities, device=dev)
+    ex = BucketedWaveExecutor(app, k)
+    starts = [-(2**31) + 12_345 + b * (2**32 // lobbies) for b in range(lobbies - 1)]
+    starts.append(2**31 - 3)
+    buf, inputs, status = wave_buffer(app, starts, k, seed=lobbies)
+    bases = [app.init_state()]
+    for j in range(3):
+        bases.append(app.resim_fn(bases[-1], inputs[0, :1], status[0, :1], j)[0])
+    lane_worlds = [bases[b % len(bases)] for b in range(lobbies)]
+    worlds = stack_worlds(lane_worlds)
+    ks = [k] * lobbies
+    sync(dev)
+    cf.launches = 0
+    R.vmap_fallbacks = 0
+    bucket, finals, stacked, checks = ex.run_wave_packed(worlds, buf, ks)
+    sync(dev)
+    launches = cf.launches
+    if launches != (dev.type == "cuda") or bucket != k or R.vmap_fallbacks:
+        raise SystemExit(f"chip_smoke: batched wave: {launches} fold launches, bucket "
+                         f"{bucket}, {R.vmap_fallbacks} vmap fallbacks")
+    for b in range(lobbies):
+        final, solo_stacked, solo_checks = app.resim_fn(lane_worlds[b], inputs[b], status[b],
+                                                        starts[b])
+        if not (trees_equal(unstack_world(finals, b), final)
+                and trees_equal(unstack_world(stacked, b), solo_stacked)
+                and torch.equal(checks[b * k:(b + 1) * k], solo_checks)):
+            raise SystemExit(f"chip_smoke: batched wave: lane {b} differs from its solo resim")
+    fold_shape = check_fold_on("batched wave", app.reg, flat_branches(stacked))
+    del finals, stacked, checks, bases, lane_worlds
+    rates = []
+    w = worlds
+    for _ in range(SIZES["wave_reps"]):
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(SIZES["wave_iters"]):
+            _, w, _, _ = ex.run_wave_packed(w, buf, ks)
+        sync(dev)
+        rates.append(SIZES["wave_iters"] * lobbies * k / (time.perf_counter() - t0))
+    wall_ms = lobbies * k / statistics.median(rates) * 1e3
+    prof = device_profile(lambda: ex.run_wave_packed(w, buf, ks), SIZES["profile_calls"] // 4)
+    busy = prof["device_ms_per_call"] / wall_ms
+    out = {"lobbies": lobbies, "entities": entities, "k": k, "card": card,
+           "lanes_bit_equal_to_solo": lobbies, "fold_launches_per_wave": launches,
+           "fold_exact_on": fold_shape, "vmap_fallbacks": R.vmap_fallbacks,
+           "lobby_frames_per_s_median": statistics.median(rates),
+           "lobby_frames_per_s_min": min(rates), "lobby_frames_per_s_max": max(rates),
+           "wall_ms_per_wave": wall_ms,
+           "device_events_per_wave": prof["device_events_per_call"],
+           "htod_copies_per_wave": prof["htod_copies_per_call"],
+           "device_ms_per_wave": prof["device_ms_per_call"],
+           "host_ms_per_wave_profiled": prof["host_ms_per_call"],
+           "device_busy_share": busy, "device_idle_share": 1 - busy,
+           "world_bytes": tree_device_bytes(worlds),
+           "stack_bytes": tree_device_bytes(worlds) * k,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    if not prof["profiler_saw_device"] or not 0 < busy <= 1.5:
+        raise SystemExit(f"chip_smoke: batched wave profile: {out}")
+    return out
+
+
+def clock_app(dev):
+    """A step that writes its clock into every entity (the frame, the
+    retire horizon, the time) and folds its inputs and the frame into a
+    running value: a lane on another lane's clock, inputs or world shows
+    in its state and its checksum."""
+    from bevy_ggrs_tpu_torch import App
+    from bevy_ggrs_tpu_torch.snapshot import spawn
+
+    app = App(num_players=2, capacity=4, input_shape=(), input_dtype=np.uint8, retention=5,
+              fps=60, device=dev)
+    for name, dt in (("f", torch.int32), ("r", torch.int32), ("t", torch.float32),
+                     ("acc", torch.int32)):
+        app.rollback_component(name, (), dt)
+
+    def step(world, ctx):
+        c = world.comps
+        one = torch.ones_like(c["f"])
+        mix = ctx.inputs.to(torch.int32).sum() * 7 + ctx.frame
+        return dataclasses.replace(world, comps={
+            "f": one * ctx.frame, "r": one * ctx.retire_frame,
+            "t": torch.ones_like(c["t"]) * ctx.time_seconds,
+            "acc": (c["acc"] * 31 + mix) & 0xFFFF})
+
+    def setup(world):
+        for _ in range(2):
+            world, _ = spawn(app.reg, world, {"f": 0, "r": 0, "t": 0.0, "acc": 0})
+        return world
+
+    app.set_step(step)
+    app.set_setup(setup)
+    return app
+
+
+def wave_lanes(dev) -> dict:
+    """Part (a)'s lane check where a fault would show: the clock app and
+    fixed_point (both read their inputs and their frame), lane ``b`` from
+    the init world advanced ``b`` frames on its own inputs, starts that
+    straddle I32_MAX, a full wave (the exact program) and a ragged one
+    (the ``n_real``-masked program, one lane idle): every lane bit-equal
+    to the solo resim of its own frames, one fold launch per wave."""
+    from bevy_ggrs_tpu_torch import BucketedWaveExecutor, stack_worlds, unstack_world
+    from bevy_ggrs_tpu_torch.models import fixed_point
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.ops.packing import pack_prefix
+    from bevy_ggrs_tpu_torch.utils.tree import tree_map
+
+    k = SIZES["bench_k"]
+    starts = [2**31 - 1 - b for b in range(4)] + [-(2**31) + b for b in range(4)]
+    m = len(starts)
+    waves = {"full": [k] * m, "ragged": [k, k - 1, 1, 0, k, 3, k - 2, 5]}
+    out = {}
+    for name, app in (("clock", clock_app(dev)), ("fixed_point", fixed_point.make_app(device=dev))):
+        buf, inputs, status = wave_buffer(app, starts, k, seed=m)
+        worlds = [app.init_state()]
+        for b in range(1, m):
+            worlds.append(app.resim_fn(worlds[0], inputs[b, :b], status[b, :b], 1000 * b)[0])
+        ex = BucketedWaveExecutor(app, k)
+        for wave, ks in waves.items():
+            for b in range(m):
+                pack_prefix(buf[b], starts[b], ks[b])
+            cf.launches = 0
+            bucket, finals, stacked, checks = ex.run_wave_packed(stack_worlds(worlds), buf, ks)
+            sync(dev)
+            if cf.launches != (dev.type == "cuda") or bucket != k:
+                raise SystemExit(f"chip_smoke: wave lanes {name} {wave}: {cf.launches} fold "
+                                 f"launches, bucket {bucket}")
+            for b, n in enumerate(ks):
+                if n == 0:
+                    ok = trees_equal(unstack_world(finals, b), worlds[b])
+                else:
+                    final, solo, solo_checks = app.resim_fn(worlds[b], inputs[b, :n],
+                                                            status[b, :n], starts[b])
+                    ok = (trees_equal(unstack_world(finals, b), final)
+                          and trees_equal(tree_map(lambda a: a[:n], unstack_world(stacked, b)),
+                                          solo)
+                          and torch.equal(checks[b * k:b * k + n], solo_checks))
+                if not ok:
+                    raise SystemExit(f"chip_smoke: wave lanes {name} {wave}: lane {b} "
+                                     f"(start {starts[b]}, {n} frames) differs from its "
+                                     "solo resim")
+        out[name] = {wave: m for wave in waves}
+    return {"starts": starts, "ragged_ks": waves["ragged"], "lanes_bit_equal_to_solo": out}
+
+
+def flatness_run(dev, lobbies: int) -> dict:
+    """Part (b): a BatchedRunner over ``lobbies`` SyncTest lobbies of
+    ``stress.make_app(64, capacity=64)`` at check distance 2; the launches
+    and copies of the 8 ticks after 4 of warm-up, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevy_ggrs_tpu_torch import BatchedRunner, SyncTestSession
+    from bevy_ggrs_tpu_torch.models import stress
+
+    app = stress.make_app(64, capacity=64, device=dev)
+    br = BatchedRunner(app, [SyncTestSession(2, check_distance=2) for _ in range(lobbies)],
+                       read_inputs=lambda b, hs: {h: np.uint8((b + h) & 0xF) for h in hs})
+    for _ in range(SIZES["flat_warm"]):
+        br.tick()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(SIZES["flat_ticks"]):
+            br.tick()
+        sync(dev)
+    br.finish()
+    counts = {"kernels": 0, "copies": 0, "fills": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) or e.key.startswith("ProfilerStep"):
+            continue
+        kind = "copies" if "Memcpy" in e.key else "fills" if "Memset" in e.key else "kernels"
+        counts[kind] += e.count
+    st = br.stats()
+    return {"lobbies": lobbies, **{f"{k}_per_tick": v / SIZES["flat_ticks"]
+                                   for k, v in counts.items()},
+            "device_dispatches": st["device_dispatches"], "bucket_hist": st["bucket_hist"],
+            "fallback_loads": st["fallback_loads"]}
+
+
+def pair_inputs(frame: int, lobby: int) -> np.uint8:
+    """Peer 0 of pair ``lobby // 2`` flips its input every
+    ``p2p_flip_frames`` frames, offset per pair; peer 1 holds it."""
+    if lobby % 2:
+        return np.uint8(8)
+    return np.uint8(8 if ((frame + 3 * (lobby // 2)) // SIZES["p2p_flip_frames"]) % 2 == 0
+                    else 1)
+
+
+def pair_sessions(make_app, dev, pairs: int, seed: int):
+    """``pairs`` P2P games of port sessions over ChannelNetworks (3 hops,
+    input delay 1, window 8, checksums compared every frame)."""
+    from bevy_ggrs_tpu_torch import DesyncDetection, PlayerType, SessionBuilder
+    from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+
+    nets = [ChannelNetwork(latency_hops=SIZES["p2p_latency_hops"], seed=seed + g)
+            for g in range(pairs)]
+    sessions = []
+    for g in range(pairs):
+        for i in range(2):
+            b = (SessionBuilder.for_app(make_app()).with_input_delay(1)
+                 .with_max_prediction_window(8)
+                 .with_desync_detection_mode(DesyncDetection.on(1))
+                 .add_player(PlayerType.LOCAL, i)
+                 .add_player(PlayerType.REMOTE, 1 - i, f"g{g}p{1 - i}"))
+            sessions.append(b.start_p2p_session(nets[g].endpoint(f"g{g}p{i}")))
+    return nets, sessions
+
+
+def sync_all(nets, tick, sessions) -> None:
+    for _ in range(2000):
+        for net in nets:
+            net.deliver()
+        tick()
+        if all(s.current_state().value == "running" for s in sessions):
+            return
+        time.sleep(0.0005)
+    raise SystemExit("chip_smoke: batched P2P sessions never synchronized")
+
+
+def note_confirmed(rings, confirmed, seen) -> None:
+    """Each lobby's checksum refs at the frames it has confirmed (read
+    later, off the clock)."""
+    from bevy_ggrs_tpu_torch.utils.frames import frame_le
+
+    for b, ring in enumerate(rings):
+        for f in ring.frames():
+            if frame_le(f, confirmed[b]):
+                seen[b].setdefault(f, ring.peek(f)[1])
+
+
+def waiting_sessions(make_app, n: int) -> list:
+    """``n`` P2P sessions whose peers never answer: lobbies waiting for
+    their players, whose lanes every wave leaves idle."""
+    from bevy_ggrs_tpu_torch import PlayerType, SessionBuilder
+    from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+
+    net = ChannelNetwork(latency_hops=1)
+    return [SessionBuilder.for_app(make_app()).add_player(PlayerType.LOCAL, 0)
+            .add_player(PlayerType.REMOTE, 1, f"absent{w}")
+            .start_p2p_session(net.endpoint(f"waiting{w}")) for w in range(n)]
+
+
+def flip_each_pad(used):
+    """Speculation candidates: one row per pad with that pad's input
+    flipped between the traffic's two values (8 and 1), the other as used;
+    the row of a lobby's remote pad is its correction."""
+    used = np.asarray(used)
+    out = np.repeat(used[None], len(used), axis=0)
+    for h in range(len(used)):
+        out[h, h] = 9 - used[h]
+    return out
+
+
+def server_run(name: str, make_app, dev, card: str, speculation=None, waiting: int = 0) -> dict:
+    """Parts (c) and (d): ``server_pairs`` P2P pairs (and ``waiting``
+    lobbies that never start) as one BatchedRunner; the timed loop under
+    sync debug mode "error"; the pairs' confirmed checksum refs; the peak
+    device memory of the run.  Fails on a desync, a fold launch that is
+    not a wave, a fallback load row, more than one upload per wave, a
+    forced readback or a staging wait, and with drafts on, on branch
+    caches that keep more bytes allocated than their entries' own."""
+    from bevy_ggrs_tpu_torch import BatchedRunner
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.utils.mem import tree_device_bytes
+
+    pairs, frames = SIZES["server_pairs"], SIZES["server_frames"]
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    nets, playing = pair_sessions(lambda: make_app(dev), dev, pairs, seed=40)
+    sessions = playing + waiting_sessions(lambda: make_app(dev), waiting)
+    br = BatchedRunner(make_app(dev), sessions, speculation=speculation,
+                       read_inputs=lambda b, hs: {h: pair_inputs(br.frames[b], b) for h in hs})
+    sync_all(nets, br.tick, playing)
+    seen = [{} for _ in sessions]
+    st0 = br.stats()
+    sync(dev)
+    cf.launches = 0
+    t0 = time.perf_counter()
+    debug = dev.type == "cuda"
+    if debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(frames):
+            for net in nets:
+                net.deliver()
+            br.tick()
+            note_confirmed(br.rings, br.confirmed, seen)
+    finally:
+        if debug:
+            torch.cuda.set_sync_debug_mode(0)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = cf.launches
+    st = br.stats()
+    waves = st["wave_dispatches"] - st0["wave_dispatches"]
+    uploads = st["host_uploads"] - st0["host_uploads"]
+    desyncs = [e for _b, e in br.events if type(e).__name__ == "DesyncDetected"]
+    out = {"model": name, "card": card, "lobbies": len(playing), "waiting_lobbies": waiting,
+           "ticks": frames,
+           "seconds": dt, "lobby_frames": sum(st["frames"]) - sum(st0["frames"]),
+           "rollbacks": st["rollbacks"] - st0["rollbacks"], "waves": waves,
+           "waves_per_tick": waves / frames, "bucket_hist": st["bucket_hist"],
+           "fused_loads": st["fused_loads"] - st0["fused_loads"],
+           "fallback_loads": st["fallback_loads"], "fold_launches": launches,
+           "uploads": uploads, "load_index_uploads": st["load_index_uploads"],
+           "forced_readbacks": st["readbacks"]["forced"] - st0["readbacks"]["forced"],
+           "staging_waits": st["staging_deferred_blocks"] - st0["staging_deferred_blocks"],
+           "desyncs": len(desyncs), "stalled_frames": sum(st["stalled_frames"])}
+    out["aggregate_frames_per_s"] = out["lobby_frames"] / dt
+    out["per_lobby_frames_per_s"] = out["aggregate_frames_per_s"] / len(playing)
+    if dev.type == "cuda":
+        out["base_memory_bytes"] = base_bytes
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    fail = []
+    if speculation is not None:
+        out["speculation"] = st["speculation"]
+        # what the entries' own tensors take: each lobby's drafted lanes
+        out["speculation"]["entry_bytes"] = sum(tree_device_bytes(c._cache)
+                                                for c in br.spec_caches)
+        if out["speculation"]["cached_bytes"] > out["speculation"]["entry_bytes"]:
+            fail.append("branch caches pin more than their entries")
+    if desyncs or out["rollbacks"] == 0:
+        fail.append("a desync or no rollback")
+    if dev.type == "cuda" and launches != waves:
+        fail.append(f"{launches} fold launches for {waves} waves")
+    if out["fallback_loads"] or uploads != waves:
+        fail.append("a fallback load row, or not one upload per wave")
+    if out["forced_readbacks"] or out["staging_waits"]:
+        fail.append("a forced readback or a staging wait")
+    if fail:
+        raise SystemExit(f"chip_smoke: batched server {name}: {'; '.join(fail)}: {out}")
+    out["confirmed"] = seen[:len(playing)]
+    return out
+
+
+def solo_pairs(make_app, dev) -> list:
+    """The same pairs as :func:`server_run` on solo port runners: each
+    lobby's confirmed checksum refs."""
+    from bevy_ggrs_tpu_torch import GgrsRunner
+
+    nets, sessions = pair_sessions(lambda: make_app(dev), dev, SIZES["server_pairs"], seed=40)
+    runners = []
+    for b, s in enumerate(sessions):
+        holder = []
+        runners.append(GgrsRunner(make_app(dev), s, read_inputs=lambda hs, b=b, holder=holder: {
+            h: pair_inputs(holder[0].frame, b) for h in hs}))
+        holder.append(runners[-1])
+    sync_all(nets, lambda: [r.update(0.0) for r in runners], sessions)
+    seen = [record_confirmed(r) for r in runners]
+    for _ in range(SIZES["server_frames"]):
+        for net in nets:
+            net.deliver()
+        for r in runners:
+            r.update(1.0 / 60.0)
+    return seen
+
+
+def same_confirmed(name: str, a: list, b: list) -> int:
+    """Frames where both record a lobby's confirmed checksum: all equal
+    (fails otherwise, or with too few shared frames)."""
+    shared = 0
+    for lobby, (x, y) in enumerate(zip(a, b)):
+        frames = set(x) & set(y)
+        if len(frames) < SIZES["server_frames"] // 2:
+            raise SystemExit(f"chip_smoke: {name}: lobby {lobby} shares {len(frames)} frames")
+        for f in frames:
+            if x[f]() != y[f]():
+                raise SystemExit(f"chip_smoke: {name}: lobby {lobby} differs at frame {f}")
+        shared += len(frames)
+    return shared
+
+
+def phase_batched(dev, card: str) -> int:
+    """The many-worlds slice (see the module docstring); returns the fold
+    launches of the driven paths: the waves, the server loops."""
+    from bevy_ggrs_tpu_torch import SpeculationConfig
+    from bevy_ggrs_tpu_torch.models import fixed_point, stress_soa
+
+    emit("batched_wave_lanes", card=card, **wave_lanes(dev))
+    launches = 0
+    for lobbies, entities in SIZES["wave_cells"]:
+        r = wave_throughput(dev, lobbies, entities, card)
+        launches += r["fold_launches_per_wave"]
+        emit("batched_wave", **r)
+        gc.collect()
+        torch.cuda.empty_cache()
+    flat = {m: flatness_run(dev, m) for m in (4, 16)}
+    a, b = flat[4], flat[16]
+    if (a["kernels_per_tick"], a["copies_per_tick"], a["fills_per_tick"]) != \
+            (b["kernels_per_tick"], b["copies_per_tick"], b["fills_per_tick"]):
+        raise SystemExit(f"chip_smoke: launches per tick differ between M=4 and M=16: {flat}")
+    emit("batched_flatness", card=card, m4=a, m16=b)
+    soa = lambda d: stress_soa.make_app(n_entities=SIZES["server_entities"], device=d)  # noqa: E731
+    fxp = lambda d: fixed_point.make_app(device=d)  # noqa: E731
+    runs = {}
+    for name, make in (("stress_soa", soa), ("fixed_point", fxp)):
+        r = server_run(name, make, dev, card)
+        launches += r["fold_launches"]
+        r["shared_with_solo"] = same_confirmed(f"batched {name} vs solo pairs",
+                                               r["confirmed"], solo_pairs(make, dev))
+        runs[name] = r
+    # (c)'s traffic leaves no lane idle outside its rollback ticks, and a
+    # draft there hedges only the lobbies that just rolled back; lobbies
+    # waiting for players give every wave idle lanes to draft into.
+    # fixed_point reads its inputs: a hit served from another candidate's
+    # lane would change its confirmed checksums
+    hedged = []
+    for name, make in (("stress_soa", soa), ("fixed_point", fxp)):
+        r = server_run(name, make, dev, card, waiting=2 * SIZES["server_pairs"],
+                       speculation=SpeculationConfig(
+                           candidates_fn=flip_each_pad, depth=SIZES["server_spec_depth"],
+                           max_cached_frames=SIZES["server_spec_depth"]))
+        launches += r["fold_launches"]
+        if r["speculation"]["hits"] == 0:
+            raise SystemExit(f"chip_smoke: batched drafts {name}: no hit: {r['speculation']}")
+        r["shared_with_plain"] = same_confirmed(f"batched drafts {name} vs plain",
+                                                r["confirmed"], runs[name]["confirmed"])
+        hedged.append(r)
+    for r in (*runs.values(), *hedged):
+        r.pop("confirmed")
+        emit("batched_server", hedged="speculation" in r, **r)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1761,7 +2322,7 @@ def main() -> int:
     phase_synctest(dev)
     by_path = {"resim": launches, "p2p": phase_p2p(dev),
                "pipeline": phase_pipeline(dev, card),
-               **phase_speculation(dev, card),
+               **phase_speculation(dev, card), "batched": phase_batched(dev, card),
                "spectator": phase_spectator(dev), "native": phase_native(dev)}
     print(json.dumps({"kernels": [{
         "name": "checksum_fold",

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Where the PyTorch port's time goes on the card, from torch.profiler
-traces.  Two modes:
+traces.  Its modes:
 
 - default: ``App.resim_fn`` on ``stress_soa`` (k=8).  Prints one JSON line:
   wall ms per resim call (host clock around calls that end in a
@@ -35,16 +35,31 @@ traces.  Two modes:
   64 MiB default and raised above any cache entry, in turns (default,
   raised, raised, default), each on a fresh pair.  Prints one JSON line:
   per run, the hit and miss service ms (p50, p99), the hits, the
-  cache-served frames and the saves cloned out per hit.
+  cache-served frames, the saves cloned out per hit and the pair's peak
+  device memory (``torch.cuda.max_memory_allocated`` over the run: views
+  of served saves pin their cache entries while they are ringed).
+
+- ``--server``: a many-lobby server tick, as ``chip_smoke.py`` phase
+  ``batched`` part (c) drives it (8 P2P pairs, 16 lobbies of
+  ``stress_soa`` at 10,000 entities unless ``--entities`` says otherwise,
+  in one ``BatchedRunner``; the pairs, their channel and inputs come from
+  ``chip_smoke.py``).  Prints one JSON line: host ms per server tick over
+  ``P2P_TICKS`` ticks, split into the lobbies' network polls, their
+  session steps, the load waves, the run waves' executor calls, the rest
+  of the run waves (staging and saves) and the rest of the tick; then,
+  from a trace of ``PROFILE_TICKS`` ticks, the device-busy ms per tick,
+  the idle share, kernel launches, copies per tick and the top kernels.
 
 Needs a CUDA card; it fails without one.
 
 Run from the repo root:
     python scripts/torch_port_profile.py [--entities N] [--p2p [--mode pipelined|sync]]
     python scripts/torch_port_profile.py --service [--entities N]
+    python scripts/torch_port_profile.py --server [--entities N]
 """
 
 import argparse
+import gc
 import json
 import sys
 import time
@@ -246,6 +261,87 @@ def profile_p2p(entities: int, mode: str) -> dict:
     }
 
 
+def _trace_counts(prof, n: int) -> dict:
+    """Device busy ms, launches and copies per tick of a trace of ``n``
+    ticks, and its top kernels."""
+    busy_us, launches, htod, dtoh = 0.0, 0, 0, 0
+    events = _device_events(prof)
+    for e in events:
+        busy_us += _device_us(e)
+        if "Memcpy HtoD" in e.key:
+            htod += e.count
+        elif "Memcpy DtoH" in e.key:
+            dtoh += e.count
+        elif "Memcpy" not in e.key and "Memset" not in e.key:
+            launches += e.count
+    top = sorted(events, key=_device_us, reverse=True)[:8]
+    return {"device_busy_ms_per_tick": busy_us / 1e3 / n, "kernel_launches_per_tick": launches / n,
+            "htod_copies_per_tick": htod / n, "dtoh_copies_per_tick": dtoh / n,
+            "top_device_events": [{"name": e.key[:70], "ms_per_tick": _device_us(e) / 1e3 / n,
+                                   "calls_per_tick": e.count / n} for e in top]}
+
+
+def profile_server(entities: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevy_ggrs_tpu_torch import BatchedRunner
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from chip_smoke import SIZES, pair_inputs, pair_sessions, sync_all
+
+    dev = torch.device("cuda")
+
+    def make_app(_dev=None):
+        return stress_soa.make_app(n_entities=entities, device=dev)
+
+    nets, sessions = pair_sessions(make_app, dev, SIZES["server_pairs"], seed=40)
+    br = BatchedRunner(make_app(), sessions,
+                       read_inputs=lambda b, hs: {h: pair_inputs(br.frames[b], b) for h in hs})
+    sync_all(nets, br.tick, sessions)
+
+    def drive(ticks):
+        for _ in range(ticks):
+            for net in nets:
+                net.deliver()
+            br.tick()
+
+    drive(WARMUP_TICKS)
+    acc = defaultdict(float)
+    for s in sessions:
+        _timed(s, "poll_remote_clients", acc, "poll")
+        _timed(s, "advance_frame", acc, "session_step")
+    _timed(br, "_do_loads", acc, "loads")
+    _timed(br, "_do_runs", acc, "runs")
+    _timed(br.exec, "run_wave_packed", acc, "wave_calls")
+    st0 = br.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drive(P2P_TICKS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    st = br.stats()
+    host_ms = {k: v * 1e3 / P2P_TICKS for k, v in acc.items()}
+    host_ms["runs_besides_wave_calls"] = host_ms["runs"] - host_ms["wave_calls"]
+    host_ms["tick"] = wall_s * 1e3 / P2P_TICKS
+    host_ms["rest_of_tick"] = host_ms["tick"] - sum(
+        host_ms[k] for k in ("poll", "session_step", "loads", "runs"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        drive(PROFILE_TICKS)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    counts = _trace_counts(prof, PROFILE_TICKS)
+    waves = st["wave_dispatches"] - st0["wave_dispatches"]
+    return {"card": torch.cuda.get_device_name(0), "entities": entities,
+            "lobbies": len(sessions), "ticks": P2P_TICKS,
+            "lobby_frames": sum(st["frames"]) - sum(st0["frames"]),
+            "rollbacks": st["rollbacks"] - st0["rollbacks"], "waves": waves,
+            "host_ms_per_tick": host_ms, "host_ms_per_wave_call": host_ms["wave_calls"]
+            * P2P_TICKS / waves,
+            "wall_ms_per_tick_profiled": prof_wall_ms / PROFILE_TICKS,
+            "idle_share": _idle_share(counts["device_busy_ms_per_tick"],
+                                      prof_wall_ms / PROFILE_TICKS), **counts}
+
+
 def service_run(entities: int, guard_bytes: int) -> dict:
     """One hedging pair on the speculation-service traffic with the ring
     guard at ``guard_bytes``: service ms by path and the clones per hit."""
@@ -261,6 +357,9 @@ def service_run(entities: int, guard_bytes: int) -> dict:
     from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
     from bevy_ggrs_tpu_torch.session.events import DesyncDetected
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     net = ChannelNetwork(seed=7, latency_hops=6)
     spec = SpeculationConfig(candidates_fn=pad_candidates(2, [0, 1], [0, 1]), depth=8,
                              max_cached_frames=16)
@@ -319,6 +418,7 @@ def service_run(entities: int, guard_bytes: int) -> dict:
             "cache_served_frames": after["served"] - before["served"],
             "saves_cloned": cloned, "saves_cloned_per_hit": cloned / hits if hits else None,
             "rollback_service_ms": service,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "desyncs": sum(isinstance(e, DesyncDetected) for r in runners for e in r.events)}
 
 
@@ -343,12 +443,16 @@ def main() -> int:
                     help="the runner's dispatch mode for --p2p")
     ap.add_argument("--service", action="store_true",
                     help="a hedging pair's rollback service time, ring guard on and raised")
+    ap.add_argument("--server", action="store_true",
+                    help="a 16-lobby BatchedRunner server tick (8 P2P pairs)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
         return 1
     if args.service:
         print(json.dumps(profile_service(args.entities or 65_536)))
+    elif args.server:
+        print(json.dumps(profile_server(args.entities or 10_000)))
     elif args.p2p:
         print(json.dumps(profile_p2p(args.entities or 1_000_000, args.mode)))
     else:

@@ -8,7 +8,9 @@ rewritten before its upload's event; the fold on a packed resim's stack;
 and speculation's branch axis: speculate lanes and canonical-branched
 lanes bit for bit against the plain and canonical resims on the card, the
 fold on a branch stack, and a hedged P2P pair with no host sync and no
-desync.
+desync; many worlds: a packed wave's lanes bit for bit against solo
+resims, the fold on a wave stack, and the batched runner's launches per
+tick flat in the lobby count.
 
 Marked ``cuda``; each skips without a card.  This file imports neither JAX
 nor the JAX package, so it runs on a machine without JAX:
@@ -516,3 +518,126 @@ def test_hedged_pair_makes_no_host_sync_and_never_desyncs(cuda, mode):
         assert a["donated_dispatches"] == 0
     assert after[1]["speculation_hits"] > before[1]["speculation_hits"]
     assert not [e for r in runners for e in r.events if isinstance(e, DesyncDetected)]
+
+
+# -- many worlds (the lobby axis) --------------------------------------------------
+
+
+def _packed_wave(app, starts, k, seed):
+    spec = app.packed_spec
+    rng = np.random.default_rng(seed)
+    m = len(starts)
+    inputs = rng.integers(0, 16, (m, k, app.num_players)).astype(app.input_dtype)
+    status = np.zeros((m, k, app.num_players), np.int8)
+    buf = spec.new_batch_buffer(m, k)
+    for b in range(m):
+        pack_prefix(buf[b], starts[b], k)
+        for i in range(k):
+            pack_row(spec, buf[b], i, inputs[b, i], status[b, i])
+    return buf, inputs, status
+
+
+def _clock_app(dev):
+    """A step that writes its clock (frame, retire horizon, time) into
+    every entity and folds its inputs and the frame into a running value,
+    so a lane on another lane's clock, inputs or world shows."""
+    import dataclasses
+
+    from bevy_ggrs_tpu_torch import App
+    from bevy_ggrs_tpu_torch.snapshot import spawn
+
+    app = App(num_players=2, capacity=4, input_shape=(), input_dtype=np.uint8, retention=5,
+              fps=60, device=dev)
+    for name, dt in (("f", torch.int32), ("r", torch.int32), ("t", torch.float32),
+                     ("acc", torch.int32)):
+        app.rollback_component(name, (), dt)
+
+    def step(world, ctx):
+        c = world.comps
+        one = torch.ones_like(c["f"])
+        mix = ctx.inputs.to(torch.int32).sum() * 7 + ctx.frame
+        return dataclasses.replace(world, comps={
+            "f": one * ctx.frame, "r": one * ctx.retire_frame,
+            "t": torch.ones_like(c["t"]) * ctx.time_seconds,
+            "acc": (c["acc"] * 31 + mix) & 0xFFFF})
+
+    def setup(world):
+        for _ in range(2):
+            world, _ = spawn(app.reg, world, {"f": 0, "r": 0, "t": 0.0, "acc": 0})
+        return world
+
+    app.set_step(step)
+    app.set_setup(setup)
+    return app
+
+
+@pytest.mark.parametrize("model", ["stress_soa", "fixed_point", "clock"])
+def test_wave_lanes_equal_solo_resims_on_card(cuda, model):
+    """Every lane of a packed exact wave (its clock read on the card from
+    its prefix, starts straddling I32_MAX, each lane from its own world)
+    equals the solo resim of that world bit for bit, with one fold launch
+    for the wave; the clock app's time holds the lanes' f32 division to
+    the solo path's host division."""
+    from bevy_ggrs_tpu_torch import BucketedWaveExecutor, stack_worlds, unstack_world
+
+    app = (stress_soa.make_app(n_entities=N, device=cuda) if model == "stress_soa"
+           else fixed_point.make_app(device=cuda) if model == "fixed_point"
+           else _clock_app(cuda))
+    starts = [0, 7, 2**31 - 2, -(2**31) + 5]
+    buf, inputs, status = _packed_wave(app, starts, K, seed=3)
+    inputs, status = torch.from_numpy(inputs).to(cuda), torch.from_numpy(status).to(cuda)
+    worlds = [app.init_state()]
+    for b in range(1, 4):
+        worlds.append(app.resim_fn(worlds[0], inputs[b, :b], status[b, :b], 100 * b)[0])
+    ex = BucketedWaveExecutor(app, K)
+    cf.launches = 0
+    tr.vmap_fallbacks = 0
+    _b, finals, stacked, checks = ex.run_wave_packed(stack_worlds(worlds), buf, [K] * 4)
+    torch.cuda.synchronize()
+    assert cf.launches == 1 and tr.vmap_fallbacks == 0 and checks.shape == (4 * K, 2)
+    for b in range(4):
+        final, solo_stacked, solo_checks = app.resim_fn(worlds[b], inputs[b], status[b],
+                                                        starts[b])
+        assert _trees_equal(unstack_world(finals, b), final), b
+        assert _trees_equal(unstack_world(stacked, b), solo_stacked), b
+        assert torch.equal(checks[b * K:(b + 1) * K], solo_checks), b
+
+
+def test_fold_on_wave_stack_equals_plain(cuda):
+    from bevy_ggrs_tpu_torch import BucketedWaveExecutor, stack_worlds
+
+    app = stress_soa.make_app(n_entities=N, device=cuda)
+    buf, _i, _s = _packed_wave(app, [0, 50, 100], K, seed=4)
+    ex = BucketedWaveExecutor(app, K)
+    _b, _f, stacked, checks = ex.run_wave_packed(stack_worlds([app.init_state()] * 3), buf,
+                                                 [K] * 3)
+    flat = tree_map(lambda a: a.reshape(3 * K, *a.shape[2:]), stacked)
+    args = fold_inputs(app.reg, flat, [n for n, s in app.reg.components.items() if s.checksum])
+    assert torch.equal(cf.checksum_fold(*args), cf.checksum_fold_plain(*args))
+    assert torch.equal(checks, world_checksums(app.reg, flat))
+
+
+def test_batched_runner_launches_flat_in_lobby_count(cuda):
+    """The same SyncTest traffic at M=4 and M=16 lobbies launches the same
+    kernels and copies per steady tick (the profiler's count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevy_ggrs_tpu_torch import BatchedRunner, SyncTestSession
+    from bevy_ggrs_tpu_torch.models import stress
+
+    counts = {}
+    for m in (4, 16):
+        br = BatchedRunner(stress.make_app(64, capacity=64, device=cuda),
+                           [SyncTestSession(2, check_distance=2) for _ in range(m)],
+                           read_inputs=lambda b, hs: {h: np.uint8((b + h) & 0xF) for h in hs})
+        for _ in range(4):
+            br.tick()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(6):
+                br.tick()
+            torch.cuda.synchronize()
+        counts[m] = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False))
+    assert counts[4] == counts[16] > 0, counts

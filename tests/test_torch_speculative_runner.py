@@ -425,3 +425,63 @@ def test_speculating_pipeline_under_the_sanitizer():
         assert san.violations == 0 and r_spec.spec_cache.hits == 6
     finally:
         staging.set_sanitize(False)
+
+
+# -- the hit path's saves follow the reference's clone rule ---------------------
+
+
+def _ring_kinds(runner, lazy_cls):
+    """``{frame: True for a view of a stack, False for a clone}`` of a
+    runner's ring."""
+    return {f: isinstance(stored, lazy_cls)
+            for f, (stored, _cs) in zip(runner.ring._frames, runner.ring._snapshots)}
+
+
+@pytest.mark.parametrize("cache_depth,guard_frames", [(4, 4), (2, 4), (2, 1)],
+                         ids=["full-hit", "partial-hit", "partial-hit-guarded"])
+def test_hit_path_keeps_views_where_the_jax_runner_does(cache_depth, guard_frames):
+    """The hedged depth-3 pair on both packages with the ring guard set
+    between the resim stack's bytes and the draft entry's: a served save is
+    cloned only when the run's own resim stack passes the guard (never on a
+    full hit, which has no stack), as in the JAX runner.  After every tick
+    each ring entry is a view on one side exactly where it is on the
+    other.  ``guard_frames`` counts one world's bytes (1 minus a byte: the
+    2-frame resim stack of the partial hit passes it)."""
+    from bevy_ggrs_tpu.snapshot.lazy import LazySlice as JLazySlice
+    from bevy_ggrs_tpu_torch.snapshot.lazy import LazySlice
+    from bevy_ggrs_tpu_torch.utils.mem import tree_device_bytes
+
+    depth = 3
+    world_bytes = tree_device_bytes(box_game.make_app(device="cpu").init_state())
+    guard = guard_frames * world_bytes - (1 if guard_frames == 1 else 0)
+    up = box_game.keys_to_input(up=True)
+    cands = list(range(16))
+    port_sess, jax_sess = ScriptedSession(), ScriptedSession()
+    port_sess.script = make_deep_script(port_sess, up, depth)
+    jax_sess.script = make_deep_script(jax_sess, up, depth,
+                                       (JAdvance, JLoad, JSave, JSaveCell))
+    port = GgrsRunner(box_game.make_app(device="cpu"), port_sess,
+                      speculation=SpeculationConfig(
+                          candidates_fn=pad_candidates(2, [1], cands), depth=cache_depth))
+    from bevy_ggrs_tpu.ops.speculation import SpeculationConfig as JSpeculationConfig
+    from bevy_ggrs_tpu.ops.speculation import pad_candidates as j_pad_candidates
+
+    jr = JRunner(j_box_game.make_app(), jax_sess, pipeline=False,
+                 speculation=JSpeculationConfig(
+                     candidates_fn=j_pad_candidates(2, [1], cands), depth=cache_depth))
+    # the guard lies below the draft entry (16 lanes x cache_depth frames)
+    assert guard < 16 * cache_depth * world_bytes
+    port.ring_materialize_bytes = jr.ring_materialize_bytes = guard
+    for _ in range(depth + 1):
+        port.tick()
+        jr.tick()
+        assert _ring_kinds(port, LazySlice) == _ring_kinds(jr, JLazySlice)
+    assert port.spec_cache.hits == jr.spec_cache.hits == 1
+    assert port.cache_served_frames == jr.cache_served_frames == min(cache_depth, depth + 1)
+    assert port.frame == jr.frame == depth + 1
+    kinds = _ring_kinds(port, LazySlice)
+    served = [f for f in range(1, depth + 1) if f <= cache_depth]
+    # a full hit and an unguarded partial hit keep every served save a view
+    assert all(kinds[f] for f in served) == (cache_depth > depth or guard_frames > 1)
+    # frame 0 is the initial world itself (a leading save), never a clone
+    assert port.materialized_saves == sum(not kinds[f] for f in kinds if f > 0)

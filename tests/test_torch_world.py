@@ -197,6 +197,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "events", "requests", "input_queue", "time_sync", "protocol", "transport",
         "channel", "p2p", "spectator", "builder", "native", "synctest")]
     expected += ["bevy_ggrs_tpu_torch.snapshot.lazy", "bevy_ggrs_tpu_torch.runner"]
+    # the many-worlds slice
+    expected += ["bevy_ggrs_tpu_torch.batch_runner", "bevy_ggrs_tpu_torch.ops.batch",
+                 "bevy_ggrs_tpu_torch.ops.variant_probe", "bevy_ggrs_tpu_torch.snapshot.strategy"]
     res = subprocess.run([sys.executable, "-c", code, *expected], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -219,6 +222,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         tw.Registry(4).init_state()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+    # the many-worlds entry points take their device from the app
+    from bevy_ggrs_tpu_torch import BatchedRunner, BucketedWaveExecutor, SyncTestSession
+    from bevy_ggrs_tpu_torch.models import stress as t_stress
+
+    for entry in (lambda: BatchedRunner(t_stress.make_app(8), [SyncTestSession(2)]),
+                  lambda: BucketedWaveExecutor(t_stress.make_app(8), 4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
     assert resolve_device("cpu").type == "cpu"
     # with an explicit CPU request, the whole path runs on the CPU
     app = t_fixed_point.make_app(device="cpu")
