@@ -30,6 +30,7 @@ from .session import (
     DesyncDetection,
     GgrsError,
     InputStatus,
+    InputRecorder,
     InvalidRequestError,
     MismatchedChecksumError,
     NativeP2PSession,
@@ -40,13 +41,19 @@ from .session import (
     Player,
     PlayerType,
     PredictionThresholdError,
+    ReplaySession,
+    RoomServer,
+    RoomSocket,
     SessionBuilder,
     SessionState,
     SpectatorSession,
     SyncTestSession,
     TcpNonBlockingSocket,
     UdpNonBlockingSocket,
+    assign_handles,
+    wait_for_players,
 )
+from .snapshot.persist import Checkpoint, load_checkpoint, load_world, save_world
 from .snapshot.strategy import (
     CloneStrategy,
     CopyStrategy,
@@ -68,4 +75,7 @@ __all__ = [
     "BatchedRunner", "BucketedWaveExecutor", "stack_worlds", "unstack_world",
     "probe_program_variants", "VariantProbeReport",
     "Strategy", "CopyStrategy", "CloneStrategy", "ReflectStrategy", "QuantizeStrategy",
+    "RoomServer", "RoomSocket", "assign_handles", "wait_for_players",
+    "InputRecorder", "ReplaySession",
+    "save_world", "load_world", "load_checkpoint", "Checkpoint",
 ]

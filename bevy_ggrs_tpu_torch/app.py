@@ -9,7 +9,9 @@ runs the same kernels and a SyncTest on one device is bit-identical at
 every check distance.
 
 The app owns a device: CUDA unless the caller passes ``device="cpu"``; with
-no card and no explicit CPU request it raises.
+no card and no explicit CPU request it raises.  ``seed`` keys
+``StepCtx.rng_key`` (``fold_in(PRNGKey(seed), frame)``, computed only when
+a step reads it) and the models' own draws, as the JAX package's does.
 
 Besides the plain functions it builds the packed single-upload resim
 (``packed_spec``, ``packed_resim_fn``), the donating variants
@@ -90,10 +92,13 @@ class App:
         canonical_depth: Optional[int] = None,
         canonical_branches: Optional[int] = None,
         device: DeviceLike = None,
+        seed: int = 0,
     ):
         self.device = resolve_device(device)
         self.num_players = num_players
         self.fps = fps
+        # session seed: StepCtx.rng_key is fold_in(PRNGKey(seed), frame)
+        self.seed = seed
         # despawn-retirement horizon (frames); must be >= the session's
         # rollback window (see ops/resim.py)
         self.retention = retention
@@ -243,8 +248,9 @@ class App:
         if self.canonical_depth is not None:
             return make_canonical_resim_fn(
                 self.reg, self.step, self.fps, self.retention, self.canonical_depth,
+                seed=self.seed,
             )
-        return make_resim_fn(self.reg, self.step, self.fps, self.retention)
+        return make_resim_fn(self.reg, self.step, self.fps, self.retention, seed=self.seed)
 
     @cached_property
     def resim_fn_donated(self):
@@ -257,7 +263,7 @@ class App:
         if self.canonical_depth is not None:
             return None
         return make_resim_fn(self.reg, self.step, self.fps, self.retention,
-                             donate=True)
+                             donate=True, seed=self.seed)
 
     # -- packed single-upload functions (ops/packing.py) ---------------------
 
@@ -280,10 +286,10 @@ class App:
         if self.canonical_depth is not None:
             return make_packed_canonical_resim_fn(
                 self.reg, self.step, self.packed_spec, self.fps, self.retention,
-                self.canonical_depth,
+                self.canonical_depth, seed=self.seed,
             )
         return make_packed_resim_fn(self.reg, self.step, self.packed_spec,
-                                    self.fps, self.retention)
+                                    self.fps, self.retention, seed=self.seed)
 
     @cached_property
     def packed_resim_fn_donated(self):
@@ -292,7 +298,7 @@ class App:
         if self.canonical_depth is not None:
             return None
         return make_packed_resim_fn(self.reg, self.step, self.packed_spec,
-                                    self.fps, self.retention, donate=True)
+                                    self.fps, self.retention, donate=True, seed=self.seed)
 
     # -- the branch axis (speculation, ops/resim.py) ----------------------------
 
@@ -301,7 +307,8 @@ class App:
         """M input branches from one state in one call: ``fn(state,
         inputs[M, k, P, ...], status[M, k, P], start_frame)`` -> ``(finals
         [M], stacked [M, k], checks [M, k, 2])``."""
-        return make_speculate_fn(self.reg, self.step, self.fps, self.retention)
+        return make_speculate_fn(self.reg, self.step, self.fps, self.retention,
+                                 seed=self.seed)
 
     @cached_property
     def packed_speculate_fn(self):
@@ -312,7 +319,7 @@ class App:
         if self.canonical_depth is not None:
             return None
         return make_packed_speculate_fn(self.reg, self.step, self.packed_spec,
-                                        self.fps, self.retention)
+                                        self.fps, self.retention, seed=self.seed)
 
     @cached_property
     def branched_fn(self):
@@ -323,7 +330,7 @@ class App:
             raise RuntimeError("App was not configured with canonical_branches")
         return make_canonical_branched_fn(
             self.reg, self.step, self.fps, self.retention, self.canonical_depth,
-            self.canonical_branches,
+            self.canonical_branches, seed=self.seed,
         )
 
     def _branched_resim_wrapper(self):

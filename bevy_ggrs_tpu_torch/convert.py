@@ -7,8 +7,16 @@ field name to numpy arrays (``comps``, ``has``, ``res`` and
 ``res_present`` are dicts of them, a resource value a tree), so neither
 package imports the other.  Leaves cross as they are, whatever their
 leading axes and dtypes: a stacked ``[M, ...]`` many-worlds world, a
-stacked resim output, or the stored form of a lossy strategy (bfloat16
-leaves of ``QuantizeStrategy``, carried bit for bit).
+stacked resim output, a uint32 resource (particles' ``rng_counter``), or
+the stored form of a lossy strategy (bfloat16 leaves of
+``QuantizeStrategy``, carried bit for bit as raw 16-bit words).
+
+The bfloat16 words go both ways but not in one form.  Into the port,
+``world_from_numpy`` takes an ``ml_dtypes.bfloat16`` array or its raw
+``|V2`` words.  Out of the port, ``to_numpy`` and ``world_to_numpy`` give
+the raw ``|V2`` words (numpy has no bfloat16 and the port does not import
+``ml_dtypes``), which ``jnp.asarray`` refuses: the JAX side views such a
+leaf as ``ml_dtypes.bfloat16`` before it builds its world.
 """
 
 from __future__ import annotations
@@ -24,20 +32,26 @@ from .utils.device import DeviceLike, resolve_device
 from .utils.tree import tree_map
 
 
+_BF16_WORDS = np.dtype("V2")
+
+
 def _from_numpy(a: Any, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # numpy has no native bfloat16
+    if a.dtype.name == "bfloat16" or a.dtype == _BF16_WORDS:
+        # numpy has no native bfloat16: an extension dtype's array, or its
+        # raw 16-bit words as ``np.load`` returns them
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a host numpy array (bfloat16 through ``ml_dtypes``)."""
+    """A tensor as a host numpy array; bfloat16 as its raw 16-bit words
+    (dtype ``|V2``, the form ``np.savez`` writes for the JAX package's
+    bfloat16 leaves; view them as ``uint16`` to compare bits, and as
+    ``ml_dtypes.bfloat16`` to hand them to JAX)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.view(torch.int16).numpy().view(_BF16_WORDS)
     return t.numpy()
 
 

@@ -75,7 +75,8 @@ def unstack_world(batched, i: int):
 def _wave(app, worlds, inputs_b, status_b, starts, n_real=None, n_real_dev=None):
     """One wave: ``(finals[M], stacked[M, k], checks[M, k, 2])``."""
     return resim_lanes(app.reg, app.step, worlds, inputs_b, status_b, starts,
-                       app.retention, app.fps, n_real, batched=True, n_real_dev=n_real_dev)
+                       app.retention, app.fps, n_real, batched=True, n_real_dev=n_real_dev,
+                       seed=app.seed)
 
 
 def make_batched_resim_fn(app):

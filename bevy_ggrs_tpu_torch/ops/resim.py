@@ -59,13 +59,20 @@ of start frames (:func:`lane_clocks`, read from the packed wave's prefix)
 and never read back; the solo and branch paths keep their host clock and
 their bits.
 
-Not ported: ``StepCtx.rng_key`` (no ported model reads it).
+``StepCtx.rng_key`` is the JAX package's per-frame key,
+``fold_in(PRNGKey(seed), uint32(frame))`` (``utils/threefry.py``), with the
+app's ``seed`` threaded through every function here as the JAX package
+threads it.  It is computed when a step first reads it, so a step that
+never does launches nothing for it (XLA drops an unused key; eager torch
+would pay for it every frame): on a host clock it is two host ints, on
+the lane path an int64 ``[2]`` tensor from the lane's own frame.
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,7 +80,7 @@ import torch
 
 from ..snapshot.checksum import branch_checksums, world_checksums
 from ..snapshot.world import Registry, WorldState, despawn_confirmed
-from ..utils import staging
+from ..utils import staging, threefry
 from ..utils.frames import frame_add
 from ..utils.tree import tree_flatten, tree_map, tree_unflatten
 from .packing import PackedSpec, PackedUpload, unpack_seq
@@ -92,7 +99,10 @@ class StepCtx:
     scalars (i32 wrap) and ``time_seconds`` a float32 device scalar, as in
     the JAX package, so a step that must run there compares them with
     tensor ops, not Python ``if``.  ``delta_seconds`` is always the host
-    float32 ``1 / fps``."""
+    float32 ``1 / fps``.  ``rng_key`` (computed on first read) is
+    ``fold_in(PRNGKey(seed), uint32(frame))``, a key of
+    ``utils/threefry.py``: host ints on a host clock (draw with
+    ``device=``), a device tensor on the lane path."""
 
     inputs: torch.Tensor  # [num_players, *input_shape]
     input_status: torch.Tensor  # int8[num_players] (InputStatus)
@@ -100,6 +110,12 @@ class StepCtx:
     retire_frame: Any  # despawn-retirement horizon
     time_seconds: Any  # GgrsTime total
     delta_seconds: np.float32  # 1 / fps
+    seed: int = 0  # the app's seed
+
+    @cached_property
+    def rng_key(self) -> threefry.Key:
+        """The frame's PRNG key, ``fold_in(PRNGKey(seed), uint32(frame))``."""
+        return threefry.fold_in(threefry.prng_key(self.seed), self.frame)
 
 
 StepFn = Callable[[WorldState, StepCtx], WorldState]
@@ -114,6 +130,7 @@ def advance(
     frame: int,
     retention: int,
     fps: int,
+    seed: int = 0,
 ) -> WorldState:
     """One AdvanceWorld: despawn-retirement sweep, then the user step."""
     retire = frame_add(frame, -retention)
@@ -124,6 +141,7 @@ def advance(
         retire_frame=retire,
         time_seconds=np.float32(frame) / np.float32(fps),
         delta_seconds=np.float32(1.0 / fps),
+        seed=seed,
     ))
 
 
@@ -199,6 +217,7 @@ def resim(
     start_frame: int,  # the frame the state currently sits at
     retention: int,
     fps: int,
+    seed: int = 0,
 ) -> Tuple[WorldState, WorldState, torch.Tensor]:
     """Advance ``k`` frames.
 
@@ -214,7 +233,7 @@ def resim(
     for i in range(k):
         frame = frame_add(frame, 1)
         state = advance(reg, step_fn, state, inputs_seq[i], status_seq[i],
-                        frame, retention, fps)
+                        frame, retention, fps, seed)
         _write_frame(stacked, i, state)
     return state, stacked, world_checksums(reg, stacked)
 
@@ -229,6 +248,7 @@ def resim_padded(
     n_real: int,  # how many leading frames actually advance
     retention: int,
     fps: int,
+    seed: int = 0,
 ) -> Tuple[WorldState, WorldState, torch.Tensor]:
     """Fixed-length resim with masked padding: the first ``n_real`` frames
     advance, later rows repeat the carried state (and its checksum), as the
@@ -244,7 +264,7 @@ def resim_padded(
         if i < n_real:
             frame = frame_add(frame, 1)
             state = advance(reg, step_fn, state, inputs_seq[i], status_seq[i],
-                            frame, retention, fps)
+                            frame, retention, fps, seed)
         _write_frame(stacked, i, state)
     return state, stacked, world_checksums(reg, stacked)
 
@@ -268,7 +288,7 @@ def trim_frames(tree, k: int, axis: int = 0):
 
 
 def make_resim_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16,
-                  donate: bool = False):
+                  donate: bool = False, seed: int = 0):
     """k-frame resim ``fn(state, inputs_seq, status_seq, start_frame)`` ->
     ``(final, stacked, checksums)``.
 
@@ -282,7 +302,7 @@ def make_resim_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16,
     def fn(state, inputs_seq, status_seq, start_frame, _retire_unused=None):
         staging.sanitizer().guard_donated(state, "resim_fn")
         out = resim(reg, step_fn, state, inputs_seq, status_seq,
-                    start_frame, retention, fps)
+                    start_frame, retention, fps, seed)
         if donate:
             staging.sanitizer().donate(state, "donated resim input")
         return out
@@ -291,7 +311,7 @@ def make_resim_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16,
 
 
 def make_packed_resim_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec, fps: int,
-                         retention: int = 16, donate: bool = False):
+                         retention: int = 16, donate: bool = False, seed: int = 0):
     """k-frame resim fed by ONE packed upload (``ops/packing.py``):
     ``fn(state, packed: PackedUpload) -> (final, stacked, checks)``.
 
@@ -299,7 +319,7 @@ def make_packed_resim_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec, fps: 
     a bit reinterpretation, and the start frame is the host word staged
     with it, so the results are the unpacked function's bit for bit.
     ``donate=True`` donates the input state (as :func:`make_resim_fn`)."""
-    plain = make_resim_fn(reg, step_fn, fps, retention, donate)
+    plain = make_resim_fn(reg, step_fn, fps, retention, donate, seed)
 
     def fn(state, packed: PackedUpload):
         inputs_seq, status_seq = unpack_seq(spec, packed.rows)
@@ -309,7 +329,8 @@ def make_packed_resim_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec, fps: 
 
 
 def make_packed_canonical_resim_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec,
-                                   fps: int, retention: int = 16, k_max: int = 16):
+                                   fps: int, retention: int = 16, k_max: int = 16,
+                                   seed: int = 0):
     """Packed variant of :func:`make_canonical_resim_fn`:
     ``fn(state, packed int8[k_max + 1, W]) -> (final, stacked, checks)``
     with the real advance count in ``packed.n_real`` (a host word).  The
@@ -324,13 +345,13 @@ def make_packed_canonical_resim_fn(reg: Registry, step_fn: StepFn, spec: PackedS
             raise ValueError(f"packed canonical resim takes {k_max} rows, "
                              f"not {inputs_seq.shape[0]}")
         return resim_padded(reg, step_fn, state, inputs_seq, status_seq,
-                            packed.start_frame, packed.n_real, retention, fps)
+                            packed.start_frame, packed.n_real, retention, fps, seed)
 
     return fn
 
 
 def make_canonical_resim_fn(reg: Registry, step_fn: StepFn, fps: int,
-                            retention: int = 16, k_max: int = 16):
+                            retention: int = 16, k_max: int = 16, seed: int = 0):
     """:func:`resim_padded` at a fixed ``k_max``, wrapped to the plain
     resim_fn signature (pads, runs, trims)."""
 
@@ -345,7 +366,7 @@ def make_canonical_resim_fn(reg: Registry, step_fn: StepFn, fps: int,
         pad = k_max - k
         final, stacked, checks = resim_padded(
             reg, step_fn, state, pad_repeat_last(inputs_seq, pad),
-            pad_repeat_last(status_seq, pad), start_frame, k, retention, fps,
+            pad_repeat_last(status_seq, pad), start_frame, k, retention, fps, seed,
         )
         if pad:
             stacked, checks = trim_frames((stacked, checks), k)
@@ -366,7 +387,7 @@ _FALLBACK_WARNING = "There is a performance drop because we have not yet impleme
 
 def _advance_lanes(reg: Registry, step_fn: StepFn, template: WorldState, leaves: list,
                    batched: bool, inputs: torch.Tensor, status: torch.Tensor,
-                   clock, retention: int, fps: int) -> list:
+                   clock, retention: int, fps: int, seed: int = 0) -> list:
     """One :func:`advance` on every lane: ``torch.func.vmap`` over the
     world's leaves (batched on axis 0, or one state for all lanes), the
     lanes' inputs and statuses.  ``clock`` is the host frame every lane
@@ -380,14 +401,14 @@ def _advance_lanes(reg: Registry, step_fn: StepFn, template: WorldState, leaves:
 
         def one(lane_leaves, inp, st, frame, retire, time_s):
             out = _advance_ctx(reg, step_fn, tree_unflatten(template, lane_leaves),
-                               StepCtx(inp, st, frame, retire, time_s, delta))
+                               StepCtx(inp, st, frame, retire, time_s, delta, seed))
             return tree_flatten(out)
 
         args = (leaves, inputs, status, *clock)
     else:
         def one(lane_leaves, inp, st):
             out = advance(reg, step_fn, tree_unflatten(template, lane_leaves), inp, st,
-                          clock, retention, fps)
+                          clock, retention, fps, seed)
             return tree_flatten(out)
 
         args = (leaves, inputs, status)
@@ -441,6 +462,7 @@ def resim_branches(
     retention: int,
     fps: int,
     n_real: Optional[Sequence[int]] = None,  # host ints, one per lane
+    seed: int = 0,
 ) -> Tuple[WorldState, WorldState, torch.Tensor]:
     """Advance M lanes ``k`` frames from one ``state``, each on its own
     inputs: the branch-axis :func:`resim` (see module docstring).
@@ -451,7 +473,7 @@ def resim_branches(
     ``n_real[b]`` frames and repeats its carried state (and checksum) after
     them, as :func:`resim_padded` does."""
     return resim_lanes(reg, step_fn, state, inputs_b, status_b, int(start_frame),
-                       retention, fps, n_real, batched=False)
+                       retention, fps, n_real, batched=False, seed=seed)
 
 
 def resim_lanes(
@@ -466,6 +488,7 @@ def resim_lanes(
     n_real: Optional[Sequence[int]] = None,  # host ints, one per lane
     batched: bool = False,
     n_real_dev: Optional[torch.Tensor] = None,  # the same counts, int32[M] on the device
+    seed: int = 0,
 ) -> Tuple[WorldState, WorldState, torch.Tensor]:
     """The lane engine under :func:`resim_branches` and the many-worlds
     waves (``ops/batch.py``).  ``state`` is one world for every lane, or
@@ -506,7 +529,7 @@ def resim_lanes(
             else:
                 lane_clock = tuple(c[:, i] for c in clocks)
             new = _advance_lanes(reg, step_fn, state, leaves, batched, inputs_b[:, i],
-                                 status_b[:, i], lane_clock, retention, fps)
+                                 status_b[:, i], lane_clock, retention, fps, seed)
             if all(advancing):
                 for dst, src in zip(stacks, new):
                     dst[:, i].copy_(src)
@@ -530,7 +553,8 @@ def resim_lanes(
     return tree_unflatten(state, leaves), stacked, branch_checksums(reg, stacked)
 
 
-def make_speculate_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16):
+def make_speculate_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16,
+                      seed: int = 0):
     """M speculative input branches from one state, in one call:
     ``fn(state, inputs_branches [M, k, P, ...], status_branches [M, k, P],
     start_frame) -> (finals[M], stacked[M, k], checksums[M, k, 2])``
@@ -540,13 +564,13 @@ def make_speculate_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int =
     def fn(state, inputs_branches, status_branches, start_frame, _retire_unused=None):
         staging.sanitizer().guard_donated(state, "speculate_fn")
         return resim_branches(reg, step_fn, state, inputs_branches, status_branches,
-                              start_frame, retention, fps)
+                              start_frame, retention, fps, seed=seed)
 
     return fn
 
 
 def make_packed_speculate_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec,
-                             fps: int, retention: int = 16):
+                             fps: int, retention: int = 16, seed: int = 0):
     """:func:`make_speculate_fn` fed by ONE packed upload: the M candidate
     branches ride an ``int8[M, depth + 1, W]`` buffer (a prefix row per
     lane), split on the card by :func:`~.packing.unpack_seq`:
@@ -556,14 +580,14 @@ def make_packed_speculate_fn(reg: Registry, step_fn: StepFn, spec: PackedSpec,
         staging.sanitizer().guard_donated(state, "packed_speculate_fn")
         inputs_b, status_b = unpack_seq(spec, packed.rows)
         return resim_branches(reg, step_fn, state, inputs_b, status_b,
-                              packed.start_frame, retention, fps)
+                              packed.start_frame, retention, fps, seed=seed)
 
     return fn
 
 
 def make_canonical_branched_fn(reg: Registry, step_fn: StepFn, fps: int,
                                retention: int = 16, k_max: int = 16,
-                               branches: int = 8):
+                               branches: int = 8, seed: int = 0):
     """ONE fixed ``[branches, k_max]`` program for every dispatch, the
     bit-determinism-safe speculation shape: ``fn(state, inputs[B, K, P,
     ...], status[B, K, P], start_frame, n_real[B]) -> (finals[B],
@@ -582,7 +606,7 @@ def make_canonical_branched_fn(reg: Registry, step_fn: StepFn, fps: int,
         if isinstance(n_real, torch.Tensor):
             n_real = n_real.tolist()
         return resim_branches(reg, step_fn, state, inputs_b, status_b, start_frame,
-                              retention, fps, n_real=n_real)
+                              retention, fps, n_real=n_real, seed=seed)
 
     return fn
 

@@ -54,8 +54,22 @@ The default dispatch path is the JAX runner's:
   the servicing seams and records each rollback's service time by path
   (hit, miss) for :meth:`GgrsRunner.stats`.
 
-It serves SyncTest, P2P (Python and native core) and spectator sessions.
-Not ported yet: megastep, telemetry and forensics reports (a
+- ``megastep=True`` (``ops/megastep.py``): every Advance/Save run, and a
+  rollback's load when its target is still in the device ring, is one
+  fixed-shape ``k_max`` program fed by one packed upload; the host keeps a
+  slot-to-frame mirror of the device ring, and a load whose target has left
+  it restores from the host ring first (bit-identical: the device ring row
+  is the same stacked row the host ring's lazy save points at).  It needs
+  an identity snapshot strategy, excludes speculation and
+  ``canonical_branches``, and turns donation off.  In eager torch it is
+  slower than the default path in every case measured (a 1-frame flush
+  runs ``k_max`` frames of launches: 3.3-3.6x the default's time per
+  flush at ``stress_soa`` 1M on an H100, PERF.md): it is kept as the
+  program a CUDA graph captures and for parity with the JAX runner's
+  option, not as a faster mode.  Leave it off unless you capture it.
+
+It serves SyncTest, P2P (Python and native core), spectator and replay
+sessions.  Not ported yet: telemetry and forensics reports (a
 ``DesyncDetected`` is recorded in :attr:`GgrsRunner.events` only).
 """
 
@@ -71,6 +85,7 @@ import torch
 
 from .app import App
 from .convert import to_numpy
+from .ops.megastep import init_device_ring, make_megastep_fn
 from .ops.packing import (
     PackedUpload,
     pack_prefix,
@@ -128,6 +143,7 @@ class GgrsRunner:
         speculation: Optional[SpeculationConfig] = None,
         measure_rollback_service: bool = False,
         on_advance: Optional[Callable] = None,
+        megastep: bool = False,
     ):
         self.app = app
         self.read_inputs = read_inputs or (
@@ -247,6 +263,38 @@ class GgrsRunner:
         # bytes staged through packed buffers
         self.host_uploads = 0
         self.packed_upload_bytes = 0
+        # Device-resident megastep (ops/megastep.py): a whole flush, with a
+        # rollback's load when its target is still in the device ring, as
+        # one program fed by one upload
+        self.megastep = bool(megastep)
+        if self.megastep:
+            if not app.reg.is_identity_strategy():
+                raise ValueError(
+                    "megastep requires an identity snapshot strategy: the "
+                    "device ring stores live stacked states, and a lossy "
+                    "strategy's store/load round-trip would need to run "
+                    "inside the ring select"
+                )
+            if speculation is not None:
+                raise ValueError(
+                    "megastep and speculation are mutually exclusive (the "
+                    "megastep flush has no per-frame lookup seam)"
+                )
+            if app.canonical_branches is not None:
+                raise ValueError(
+                    "megastep is incompatible with canonical_branches "
+                    "(the branched program owns its own dispatch shape)"
+                )
+            # the ring holds every recent state, so donation is never safe
+            self.enable_donation = False
+        self.megastep_dispatches = 0
+        self.fused_ring_loads = 0  # rollbacks served from the device ring
+        self._ms_fn = None
+        self._ms_ring = None
+        self._ms_ring_frames = None
+        self._ms_k = 0  # megastep program depth (k_max)
+        self._ms_slots = 0  # device ring depth R
+        self._dev_frames: Dict[int, int] = {}  # slot -> resident frame
         if session is not None:
             self.set_session(session)
 
@@ -281,6 +329,12 @@ class GgrsRunner:
         self.confirmed = NULL_FRAME
         self.ring.clear()
         self._last_stacked = None
+        # the megastep's program and device ring are sized from the
+        # session's windows: rebuilt lazily at the next flush
+        self._ms_fn = None
+        self._ms_ring = None
+        self._ms_ring_frames = None
+        self._dev_frames = {}
         if self.spec_cache is not None:
             # the new session's frames restart: no branch of the old one may
             # serve them
@@ -466,6 +520,9 @@ class GgrsRunner:
             "host_uploads": self.host_uploads,
             "packed": self.packed,
             "packed_upload_bytes": self.packed_upload_bytes,
+            "megastep": self.megastep,
+            "megastep_dispatches": self.megastep_dispatches,
+            "fused_ring_loads": self.fused_ring_loads,
             "materialized_saves": self.materialized_saves,
             "stalled_frames": self.stalled_frames,
             "input_queue": self.input_queue,
@@ -558,13 +615,18 @@ class GgrsRunner:
         i, n = 0, len(requests)
         while i < n:
             load = requests[i] if isinstance(requests[i], LoadRequest) else None
-            j = i + 1 if load is not None else i
+            start = j = i + 1 if load is not None else i
             while j < n and isinstance(requests[j], (AdvanceRequest, SaveRequest)):
                 j += 1
-            if load is not None:
-                self._service_rollback(load, requests[i + 1:j])
+            run = requests[start:j]
+            if self.megastep:
+                # a load fuses into its run's dispatch when its target is
+                # still in the device ring
+                self._run_megastep(load, run)
+            elif load is not None:
+                self._service_rollback(load, run)
             else:
-                self._run_batch(requests[i:j])
+                self._run_batch(run)
             i = j
         # prune after processing: with coalesced ticks, an early tick's Load
         # may target a frame below a later tick's confirmed frame
@@ -935,6 +997,140 @@ class GgrsRunner:
                 offset=k - 1, depth_eff=depth - (k - 1))
         return (tree_map(lambda a: a[0], finals), tree_map(lambda a: a[0, :k], stacked),
                 checks[0, :k], stacked)
+
+    # -- the device-resident megastep (ops/megastep.py) ----------------------------
+
+    def _ensure_megastep(self) -> None:
+        """Build the megastep program and device ring for the current
+        session on first use: one fixed ``k_max`` per session, so every
+        flush runs the same launches."""
+        if self._ms_fn is not None:
+            return
+        s = self.session
+        # the deepest session-shaped run: a rollback in the same coalesced
+        # flush as catch-up ticks
+        self._ms_k = self.coalesce_frames + max(self._rollback_window(s),
+                                                s.max_prediction())
+        # one slot more than the host ring, so k_max < R: no two real rows
+        # of one call share a slot
+        self._ms_slots = self._ring_depth(s) + 1
+        app = self.app
+        self._ms_fn = make_megastep_fn(
+            app.reg, app.step, app.packed_spec, app.fps, seed=app.seed,
+            retention=app.retention, k_max=self._ms_k, ring_slots=self._ms_slots)
+        self._ms_ring, self._ms_ring_frames = init_device_ring(self.world, self._ms_slots)
+        self._dev_frames = {}
+
+    def _dev_slot(self, frame: int) -> Optional[int]:
+        """The device-ring slot holding ``frame``, or None when it was
+        overwritten or never written (the host mirror makes the check
+        exact: a miss restores from the host ring, never a wrong row).
+        Python's ``%`` is non-negative, as ``torch.remainder`` by a
+        positive divisor is on the card, so wrapped frames agree."""
+        slot = frame % self._ms_slots
+        return slot if self._dev_frames.get(slot) == frame else None
+
+    def _run_megastep(self, load: Optional[LoadRequest], run: List[GgrsRequest]) -> None:
+        """A megastep flush: an optional load plus its following
+        Advance/Save run, as one dispatch fed by one upload per ``k_max``
+        advances, the load inside it when its target is in the device
+        ring."""
+        self._ensure_megastep()
+        n_adv = sum(1 for r in run if isinstance(r, AdvanceRequest))
+        has_load = load_slot = 0
+        loaded_pair = None
+        if load is not None:
+            slot = self._dev_slot(load.frame) if n_adv > 0 else None
+            if slot is None:
+                # a ring miss (or nothing to replay): the host ring restores
+                self._load(load.frame, load.cause)
+            else:
+                # bookkeeping only: the state is selected on the device
+                self._note_rollback(load.cause)
+                loaded_pair = self.ring.rollback(load.frame)
+                self._world_checksum = loaded_pair[1]
+                self.frame = load.frame
+                self.fused_ring_loads += 1
+                has_load, load_slot = 1, slot
+                self._last_stacked = None
+        # chunk at k_max advances: session runs always fit, replayed or
+        # scripted request lists may not
+        i, n = 0, len(run)
+        while i < n:
+            j, c = i, 0
+            while j < n:
+                if isinstance(run[j], AdvanceRequest):
+                    if c == self._ms_k:
+                        break
+                    c += 1
+                j += 1
+            self._megastep_chunk(run[i:j], has_load, load_slot, loaded_pair)
+            has_load, load_slot, loaded_pair = 0, 0, None
+            i = j
+
+    def _megastep_chunk(self, run: List[GgrsRequest], has_load: int, load_slot: int,
+                        loaded_pair) -> None:
+        """One megastep dispatch: at most ``k_max`` advances and their
+        saves, consuming a fused device-ring load when one is given."""
+        adv = [r for r in run if isinstance(r, AdvanceRequest)]
+        k = len(adv)
+        pre_world, pre_checksum = self.world, self._world_checksum
+        if self.on_advance is not None:
+            for i, a in enumerate(adv):
+                self.on_advance(frame_add(self.frame, i + 1), a.inputs, a.status)
+        stacked = checks = None
+        if k > 0:
+            self.resims += 1
+            self.megastep_dispatches += 1
+            self.rollback_frames += k - 1
+            packed = self._stage_packed_rows(adv, self.frame, k_pad=self._ms_k,
+                                             has_load=has_load, load_slot=load_slot)
+            final, self._ms_ring, self._ms_ring_frames, stacked, checks = self._ms_fn(
+                self.world, self._ms_ring, self._ms_ring_frames, packed.rows)
+            self._note_dispatch_uploads(1, packed)
+            checks = BatchChecks(checks, self.readbacks)
+            if self.pipeline:
+                self._rbq.start(checks)
+            # the host mirror of the device writeback (slot -> frame).  Across
+            # the i32 wrap two frames of one call can share a slot, and which
+            # row the device keeps is then unspecified: such a slot is
+            # forgotten, so a load of either frame restores from the host ring
+            written = [frame_add(self.frame, i + 1) for i in range(k)]
+            slots = [f % self._ms_slots for f in written]
+            for f, slot in zip(written, slots):
+                if slots.count(slot) == 1:
+                    self._dev_frames[slot] = f
+                else:
+                    self._dev_frames.pop(slot, None)
+            self.world = final
+            self._world_checksum = checks.ref(k - 1)
+            self.frame = frame_add(self.frame, k)
+        materialize_saves = False
+        if stacked is not None:
+            key = ("megastep", self._ms_k)
+            nbytes = self._stacked_bytes_by_k.get(key)
+            if nbytes is None:
+                nbytes = self._stacked_bytes_by_k[key] = tree_device_bytes(stacked)
+            materialize_saves = nbytes > self.ring_materialize_bytes
+            self._last_stacked = None if materialize_saves else stacked
+        c = 0  # advances seen so far within the run
+        for r in run:
+            if isinstance(r, AdvanceRequest):
+                c += 1
+                continue
+            if c == 0:
+                # a leading save after a fused load re-pushes the rollback's
+                # own handle: the live world was selected on the device
+                state, cs_ref = loaded_pair if loaded_pair is not None else (
+                    pre_world, pre_checksum)
+            else:
+                # identity strategies only: the stacked row is the stored form
+                state, cs_ref = LazySlice(stacked, c - 1), checks.ref(c - 1)
+                if materialize_saves:
+                    state = state.materialize()
+                    self.materialized_saves += 1
+            self.ring.push(r.frame, (state, cs_ref))
+            r.cell.save(r.frame, cs_ref)
 
 
 def _stored_world(stored):

@@ -1,6 +1,6 @@
 """Sessions: SyncTest, P2P (Python and native core), spectator, their
-builder, the wire protocol and transports (port of
-``bevy_ggrs_tpu/session``).  Not ported yet: the room server and replay."""
+builder, the wire protocol and transports, the room server and input
+replay (port of ``bevy_ggrs_tpu/session``)."""
 
 from .events import (
     InputStatus,
@@ -30,6 +30,8 @@ from .p2p import P2PSession
 from .spectator import SpectatorSession
 from .builder import SessionBuilder
 from .native import NativeP2PSession, NativeSpectatorSession, native_available
+from .room import RoomServer, RoomSocket, assign_handles, wait_for_players
+from .replay import InputRecorder, ReplaySession
 
 __all__ = [
     "InputStatus",
@@ -66,4 +68,10 @@ __all__ = [
     "NativeP2PSession",
     "NativeSpectatorSession",
     "native_available",
+    "RoomServer",
+    "RoomSocket",
+    "assign_handles",
+    "wait_for_players",
+    "InputRecorder",
+    "ReplaySession",
 ]

@@ -14,6 +14,14 @@ from .checksum import (
     world_checksum,
     world_checksums,
 )
+from .persist import (
+    Checkpoint,
+    load_checkpoint,
+    load_world,
+    registry_schema,
+    save_world,
+    schema_digest,
+)
 from .ring import MissingSnapshotError, SnapshotRing, rollback_many
 from .strategy import (
     CloneStrategy,
@@ -52,4 +60,6 @@ __all__ = [
     "component_part",
     "resource_part", "entity_part", "mix32", "fmix32", "to_u32_lanes",
     "fold_inputs",
+    "save_world", "load_world", "load_checkpoint", "Checkpoint", "registry_schema",
+    "schema_digest",
 ]

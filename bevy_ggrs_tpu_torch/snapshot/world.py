@@ -357,10 +357,15 @@ def spawn_many(
 
     ``comps`` maps names to ``[rows, *shape]`` values; ``count`` (<= rows)
     limits how many spawn.  Ids follow row order and slots ascend through
-    the free slots, so the result is deterministic."""
+    the free slots, so the result is deterministic.  A Python int
+    ``count`` stays a kernel argument (no upload); a tensor is never read
+    on the host."""
     dev = w.device
     rows = next(iter(comps.values())).shape[0]
-    count = torch.clamp(torch.as_tensor(count, device=dev).to(torch.int32), max=rows)
+    if isinstance(count, torch.Tensor):
+        count = torch.clamp(count.to(device=dev, dtype=torch.int32), max=rows)
+    else:
+        count = min(int(count), rows)
     free = ~w.alive
     rank = torch.cumsum(free.to(torch.int32), 0, dtype=torch.int32) - 1
     take = free & (rank < count)

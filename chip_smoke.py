@@ -15,8 +15,8 @@ and no result.  The phases:
                the card, bit for bit: stress_soa 1M entities x k=8 with
                and without despawned rows, a frame slice of it, box_game /
                fixed_point worlds (L=2, int32), bool / bf16 / int64
-               columns, ragged N (100,003) and a frame slice of it (an
-               unaligned storage offset), 20 components, k=1 and k=17, a
+               columns, a uint32 column, ragged N (100,003) and a frame
+               slice of it (an unaligned storage offset), 20 components, k=1 and k=17, a
                custom hash and no checksummed component, and the P2P
                paths' shapes: stress_soa 1M and the 2-player box_game /
                fixed_point worlds at k=1 (a tick) and k=2 / k=3 (a
@@ -128,25 +128,61 @@ and no result.  The phases:
                lanes the drafts fill): hits > 0, confirmed checksums equal
                to (c)'s, the branch caches pinning no more bytes than
                their entries hold; (c) and (d) report peak device memory;
-12. spectator — a box_game host pair streaming to a port
+12. megastep — (a) SyncTest ``stress_soa`` 100k at d=7 with
+               ``GgrsRunner(megastep=True)`` against the per-tick runner:
+               equal checksum streams; (b) P2P pairs at
+               ``coalesce_frames=4``, each update owing 4 frames (the P2P
+               channel, inputs keyed by the session's frame),
+               ``stress_soa`` 1M and ``fixed_point``, megastep against the
+               default runner: equal confirmed checksums, ``fixed_point``
+               equal to a CPU megastep pair's, fused ring loads, one upload
+               and one fold launch per megastep dispatch, no forced
+               readback or staging wait under ``set_sync_debug_mode(
+               "error")``; ms and launches per flush beside the default
+               runner's; (c) one megastep call at 1M captured in a CUDA
+               graph and replayed with a fused-load prefix and a plain one:
+               every output and the ring bit-equal to eager calls; the
+               fold held to its plain version on (a)'s stacks after the
+               count is read, and on (b)'s warm-up stacks (the megastep's
+               ``[k_max, N]``) before the loop, whose peak memory is read
+               from the end of the warm-up;
+13. models  — particles at the reference's defaults (rate 100, ttl 120)
+               as a P2P pair (loop under sync debug "error"), its game
+               recorded and replayed through ``ReplaySession``; particles
+               at rate 8,000 (capacity 1,024,064) under SyncTest d=7 with
+               and without ``QuantizeStrategy`` (frames/s, device events
+               per frame); its draws on the card bit-equal to the CPU's;
+               its checkpoint saved, loaded and advanced to equal
+               checksums, the schema digest pinned; crowd 512 x 2 under
+               SyncTest and a 16-lane wave against solo resims (reported,
+               with each reduction's lane-axis bit-equality); pong under
+               SyncTest to a score; a ``fixed_point`` pair over
+               ``RoomServer`` / ``RoomSocket`` on loopback; one frame's
+               particle draws profiled alone (their share of the frame's
+               device events, host and device time); the fold held to its
+               plain version on the stacks of every driven run (the pair,
+               both 1M SyncTests, crowd, pong, the room pair) and on the
+               crowd wave's;
+14. spectator — a box_game host pair streaming to a port
                ``SpectatorSession``: it reaches RUNNING and its checksum
                at each frame equals the host's confirmed checksum there;
-13. native  — a port ``NativeP2PSession`` peer against a port
+15. native  — a port ``NativeP2PSession`` peer against a port
                ``P2PSession`` peer, fixed_point on the card, over loopback
                UDP at input delay 0: the native peer steps first on a
                clock 10% fast, so it predicts the Python peer's flipping
                input and rolls back;
                both RUNNING, 120 frames, zero desyncs, equal confirmed
                checksums;
-14. result  — the kernels line, the card line, then
+16. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Every runner phase runs the runner's defaults unless it names a mode.
 Kernel launch counts are reset just before each driven path and read just
 after it; a path that did not launch the kernel fails.  Launches made to
 compare the kernel with its plain version are not counted.  The session
-phases (8 to 13) also hold the fold's output on the stacks their resims
-produced against the plain version, after the counts are read.
+phases (8 to 15) also hold the fold's output on the stacks their resims
+produced against the plain version, after the counts are read (phase 12's
+P2P pairs before the loop, on their warm-up's stacks).
 """
 
 from __future__ import annotations
@@ -233,7 +269,27 @@ SIZES = {
     "server_spec_depth": 8,
     "hierarchy_chains": 1000,
     "hierarchy_levels": 3,
+    "megastep_synctest_frames": 120,
+    "megastep_frames": 240,
+    "megastep_coalesce": 4,
+    "megastep_warm_rounds": 4,
+    "megastep_profile_rounds": 8,
+    "particles_rate": 100,
+    "particles_ttl": 120,
+    "particles_frames": 240,
+    "particles_big_rate": 8000,  # capacity 1,024,064: the headline resim's million
+    "particles_big_frames": 60,
+    "crowd_per_team": 512,
+    "crowd_frames": 120,
+    "crowd_lanes": 16,
+    "crowd_lane_k": 8,
+    "pong_frames": 200,  # the first goal at frame 82, the re-serve 45 frames later
+    "room_frames": 120,
 }
+
+# particles.make_app(rate=8000)'s checkpoint schema digest, pinned by
+# tests/test_torch_persist_replay.py (equal in the JAX package)
+PARTICLES_BIG_DIGEST = "e8a7d06a008d4b36a5f3810145315adf63cc9ce8e737820f994c9d829fc6ace3"
 
 
 T0 = time.perf_counter()
@@ -573,6 +629,13 @@ def kernel_cases(dev) -> dict:
                                        "half": ((3,), torch.bfloat16, None),
                                        "big": ((2,), torch.int64, None)})
     cases["bool_bf16_int64"] = (app.reg, stacked_of(app, world, k))
+    # a uint32 column (the fold reads its bits): an int32 stack viewed so
+    u32 = App(capacity=n_small, device=dev)
+    u32.rollback_component("word", (2,), torch.uint32, checksum=True)
+    app, world = columns_app(n_small, {"word": ((2,), torch.int32, None)})
+    stack = stacked_of(app, world, k)
+    cases["uint32"] = (u32.reg, dataclasses.replace(
+        stack, comps={"word": stack.comps["word"].view(torch.uint32)}))
     ragged = stress_soa.make_app(n_entities=SIZES["ragged_entities"], device=dev)
     ragged_stack = stacked_of(ragged, with_despawns(ragged, ragged.init_state(), 0.1), k)
     cases["ragged_100003_k8"] = (ragged.reg, ragged_stack)
@@ -788,10 +851,14 @@ def phase_parity(dev) -> None:
          stress_soa_tolerance=1e-4)
 
 
-def synctest(app, frames: int, check_distance: int = 7, **runner_kw) -> dict:
+def synctest(app, frames: int, check_distance: int = 7, keep_runner: bool = False,
+             read_inputs=None, check_fold: bool = False, **runner_kw) -> dict:
     """One SyncTest run through the runner (``runner_kw`` picks its
-    dispatch mode); a mismatch raises.  ``stream`` is the world checksum
-    after each tick, read after the run."""
+    dispatch mode, ``read_inputs`` its input function: flipping by
+    default); a mismatch raises.  ``stream`` is the world checksum after each tick, read after
+    the run; ``keep_runner`` adds the runner under ``runner``; on the card
+    ``check_fold`` holds the fold against its plain version on the first
+    stacked output of each shape the run made (``path_stacks_bit_exact``)."""
     from bevy_ggrs_tpu_torch import GgrsRunner, SessionBuilder
     from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
 
@@ -799,12 +866,14 @@ def synctest(app, frames: int, check_distance: int = 7, **runner_kw) -> dict:
                .start_synctest_session())
     holder = []
 
-    def read_inputs(handles):
+    def flipping(handles):
         phase = (holder[0].frame // 7) % 4
         return {h: np.uint8(1 << ((phase + h) % 4)) for h in handles}
 
-    runner = GgrsRunner(app, session, read_inputs=read_inputs, **runner_kw)
+    runner = GgrsRunner(app, session, read_inputs=read_inputs or flipping, **runner_kw)
     holder.append(runner)
+    check_fold = check_fold and app.device.type == "cuda"
+    kept = keep_stacks([runner]) if check_fold else None
     sync(app.device)
     cf.launches = 0
     refs = []
@@ -815,17 +884,22 @@ def synctest(app, frames: int, check_distance: int = 7, **runner_kw) -> dict:
     runner.finish()
     sync(app.device)
     dt = time.perf_counter() - t0
-    if cf.launches == 0:
+    launches = cf.launches
+    if launches == 0:
         raise SystemExit("chip_smoke: the SyncTest run never launched the fold")
     if runner.frame != frames or session.pending_comparisons() != 0:
         raise SystemExit("chip_smoke: SyncTest run ended short or uncompared")
     from bevy_ggrs_tpu_torch.snapshot import active_count
 
-    return {"frames": frames, "check_distance": check_distance,
+    checked = ({"path_stacks_bit_exact": check_stacks("synctest", kept)}
+               if check_fold else {})
+    del kept
+    extra = {"runner": runner} if keep_runner else {}
+    return {**extra, **checked, "frames": frames, "check_distance": check_distance,
             "active_entities": int(active_count(runner.world)),
             "frames_per_s": frames / dt, "seconds": dt, "rollbacks": runner.rollbacks,
             "resimulated_frames": runner.rollback_frames,
-            "kernel_launches": cf.launches, "mismatches": 0,
+            "kernel_launches": launches, "mismatches": 0,
             "pipeline": runner.pipeline, "packed": runner.packed,
             "donated_dispatches": runner.donated_dispatches,
             "final_checksum": hex(runner.checksum), "stream": [ref() for ref in refs]}
@@ -930,12 +1004,13 @@ def record_confirmed(runner) -> dict:
 
 
 def p2p_peer(make_app, i: int, socket, peer_addr, native_port=None, spectator=None,
-             input_delay: int = 1, **runner_kw):
+             input_delay: int = 1, inputs=None, **runner_kw):
     """One peer of a 2-player game (prediction window 8, checksums compared
     every frame); ``native_port`` makes it a native core session bound to
     that UDP port, ``spectator`` an address it streams confirmed inputs
-    to; ``runner_kw`` picks the runner's dispatch mode (its defaults: the
-    pipelined, packed, donating path)."""
+    to; ``inputs(i, holder)`` builds its input function (``frame_inputs``
+    unless given); ``runner_kw`` picks the runner's dispatch mode (its
+    defaults: the pipelined, packed, donating path)."""
     from bevy_ggrs_tpu_torch import DesyncDetection, GgrsRunner, PlayerType, SessionBuilder
 
     app = make_app()
@@ -950,7 +1025,8 @@ def p2p_peer(make_app, i: int, socket, peer_addr, native_port=None, spectator=No
     else:
         session = b.start_p2p_session_native(local_port=native_port)
     holder = []
-    runner = GgrsRunner(app, session, read_inputs=frame_inputs(i, holder), **runner_kw)
+    runner = GgrsRunner(app, session, read_inputs=(inputs or frame_inputs)(i, holder),
+                        **runner_kw)
     holder.append(runner)
     return runner
 
@@ -969,12 +1045,15 @@ def sync_sessions(runners, net=None, sleep_s: float = 0.0) -> None:
     raise SystemExit("chip_smoke: the sessions never synchronized")
 
 
-def drive(runners, frames: int, net=None) -> None:
+def drive(runners, frames: int, net=None, step: int = 1) -> None:
+    """``frames`` rounds of delivery and one update per runner, each
+    update owing ``step`` frames (a coalescing runner flushes them in
+    one request pass)."""
     for _ in range(frames):
         if net is not None:
             net.deliver()
         for r in runners:
-            r.update(1.0 / 60.0)
+            r.update(step / 60.0)
 
 
 def desyncs(runner) -> list:
@@ -998,14 +1077,27 @@ RESIM_FNS = ("resim_fn", "resim_fn_donated", "packed_resim_fn", "packed_resim_fn
 BRANCH_FNS = ("speculate_fn", "packed_speculate_fn", "branched_fn")
 
 
-def keep_stacks(runners) -> dict:
+class Kept(dict):
+    """``shape -> (registry, stacked output)``; the wrappers stop keeping
+    once ``open`` is False."""
+
+    open = True
+
+
+def keep_stacks(runners) -> Kept:
     """``shape -> (registry, stacked output)`` of the first call of each
     output shape the runners make, kept to hold the fold against its plain
     version on the main path's own tensors: through the app's resim
-    functions (plain, donating, packed; key ``(k,)``) and its branch-axis
+    functions (plain, donating, packed; key ``(k,)``), its branch-axis
     ones (speculate, branched; key ``(M, k)``, the stack viewed as
-    ``[M * k, ...]``, as the fold sees it)."""
-    kept = {}
+    ``[M * k, ...]``, as the fold sees it) and a megastep runner's
+    program (key ``("megastep", k_max)``)."""
+    kept = Kept()
+
+    def keep(key, reg, stacked):
+        if kept.open:
+            kept.setdefault(key, (reg, stacked))
+
     for r in runners:
         app = r.app
         for name in RESIM_FNS + BRANCH_FNS:
@@ -1017,11 +1109,31 @@ def keep_stacks(runners) -> dict:
 
             def keeping(*args, fn=fn, reg=app.reg, branch=name in BRANCH_FNS):
                 out = fn(*args)
-                kept.setdefault(tuple(out[2].shape[:-1]),
-                                (reg, flat_branches(out[1]) if branch else out[1]))
+                keep(tuple(out[2].shape[:-1]),
+                     reg, flat_branches(out[1]) if branch else out[1])
                 return out
 
             setattr(app, name, keeping)
+        if getattr(r, "megastep", False):
+            def wrap(r=r):
+                fn = r._ms_fn
+
+                def keeping(*args, fn=fn, reg=r.app.reg):
+                    out = fn(*args)
+                    keep(("megastep", *out[4].shape[:-1]), reg, out[3])
+                    return out
+
+                r._ms_fn = keeping
+
+            def ensuring(r=r, ensure=r._ensure_megastep, wrap=wrap):
+                fresh = r._ms_fn is None
+                ensure()
+                if fresh:  # the program is built per session: wrap each one
+                    wrap()
+
+            if r._ms_fn is not None:
+                wrap()
+            r._ensure_megastep = ensuring
     return kept
 
 
@@ -1032,7 +1144,7 @@ def check_stacks(name: str, kept: dict) -> list:
     from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
 
     shapes = []
-    for key, (reg, stacked) in sorted(kept.items()):
+    for key, (reg, stacked) in sorted(kept.items(), key=lambda kv: [-1 if isinstance(x, str) else x for x in kv[0]]):
         args = fold_inputs(reg, stacked)
         got, want = cf.checksum_fold(*args), cf.checksum_fold_plain(*args)
         if not torch.equal(got, want):
@@ -1304,12 +1416,13 @@ def counters(runners) -> dict:
             out[key] += st["readbacks"][key]
         for key in ("pipeline_degrades", "materialized_saves", "donated_dispatches",
                     "host_uploads", "packed_upload_bytes", "staging_deferred_blocks",
-                    "staging_landed_free", "rollbacks"):
+                    "staging_landed_free", "rollbacks", "megastep_dispatches",
+                    "fused_ring_loads"):
             out[key] = out.get(key, 0) + st[key]
     return out
 
 
-def profile_ticks(runners, net, ticks: int) -> dict:
+def profile_ticks(runners, net, ticks: int, step: int = 1) -> dict:
     """A profiler trace of ``ticks`` pair ticks: host-to-device copies per
     resim (pinned and pageable), device-to-host copies and kernel launches
     per peer tick, device busy time (kernels, copies and fills) and the
@@ -1319,7 +1432,7 @@ def profile_ticks(runners, net, ticks: int) -> dict:
     resims0 = sum(r.resims for r in runners)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        drive(runners, ticks, net)
+        drive(runners, ticks, net, step)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     resims = sum(r.resims for r in runners) - resims0
@@ -2308,6 +2421,542 @@ def phase_batched(dev, card: str) -> int:
     return launches
 
 
+# -- the megastep and the rest of the game surface --------------------------------
+
+
+def session_frame_inputs(i: int, holder: list):
+    """``frame_inputs`` keyed by the session's frame, not the runner's: a
+    coalescing runner reads several ticks' inputs before its frame moves,
+    so this keeps the game the same whatever the dispatch mode."""
+    flip = SIZES["p2p_flip_frames"]
+
+    def read_inputs(handles):
+        on = i == 1 or (holder[0].session.current_frame // flip) % 2 == 0
+        return {h: np.uint8(8 if on else 1) for h in handles}
+
+    return read_inputs
+
+
+def megastep_pair(name: str, make_app, dev, seed: int, megastep: bool) -> dict:
+    """A P2P pair at ``coalesce_frames=4``, each update owing 4 frames,
+    megastep on or off: the counters of a loop of ``megastep_frames``
+    frames (under ``set_sync_debug_mode("error")`` with the megastep on the
+    card), a profiled window, the confirmed checksums."""
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    cuda = dev.type == "cuda"
+    co = SIZES["megastep_coalesce"]
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    net, runners, seen = channel_pair(make_app, seed, inputs=session_frame_inputs,
+                                      coalesce_frames=co, megastep=megastep)
+    sync_sessions(runners, net)
+    kept = keep_stacks(runners) if cuda else None
+    drive(runners, SIZES["megastep_warm_rounds"], net, co)
+    stack_shapes = []
+    if cuda:
+        # the fold against its plain version on the stacks the warm-up's
+        # dispatches made (the megastep's [k_max, N]), checked and freed
+        # here: kept through the loop they would raise its peak memory
+        stack_shapes = check_stacks(f"megastep {name}", kept)
+        if megastep and not any(key[0] == "megastep" for key in kept):
+            raise SystemExit(f"chip_smoke: megastep {name}: no megastep stack kept")
+        kept.open = False
+        kept.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    rounds = SIZES["megastep_frames"] // co
+    before = counters(runners)
+    sync(dev)
+    cf.launches = 0
+    debug = cuda and megastep
+    t0 = time.perf_counter()
+    if debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        drive(runners, rounds, net, co)
+    finally:
+        if debug:
+            torch.cuda.set_sync_debug_mode("default")
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = cf.launches
+    after = counters(runners)
+    loop = {k: after[k] - before[k] for k in after}
+    prof = profile_ticks(runners, net, SIZES["megastep_profile_rounds"], co) if cuda else {}
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    for r in runners:
+        r.finish()
+    agreed = agreed_checksums(seen)
+    flushes = 2 * rounds
+    result = {
+        "pair": name, "megastep": megastep, "device": str(dev), "frames": rounds * co,
+        "coalesce_frames": co, "k_max": runners[0]._ms_k if megastep else None,
+        "sync_debug_mode": "error" if debug else "default", "seconds": dt,
+        "frames_per_s_per_peer": loop["frames"] / 2 / dt, "ms_per_flush": dt * 1e3 / flushes,
+        "dispatches_per_flush": loop["resims"] / flushes, "loop": loop,
+        "fold_launches": launches, "desyncs": [len(desyncs(r)) for r in runners],
+        "launches_per_flush": (prof["launches"] / prof["profiled_peer_ticks"]
+                               if prof else None),
+        "launches_per_dispatch": (prof["launches"] / prof["profiled_resims"]
+                                  if prof and prof["profiled_resims"] else None),
+        "max_memory_allocated_bytes": peak, "peak_window": "after the warm-up",
+        "profile": prof, "confirmed_frames_agreed": len(agreed),
+        "warm_up_stacks_bit_exact": stack_shapes,
+    }
+    fail = []
+    # a flush confirms several frames and the runner reports the last, so
+    # about one confirmed frame per flush is recorded
+    if any(result["desyncs"]) or len(agreed) < rounds // 2 or loop["rollbacks"] == 0:
+        fail.append("desync, few agreed frames or no rollback")
+    if cuda and launches != loop["resims"]:
+        fail.append(f"{launches} fold launches for {loop['resims']} dispatches")
+    if megastep:
+        if loop["fused_ring_loads"] == 0 or loop["megastep_dispatches"] != loop["resims"]:
+            fail.append("no fused ring load, or a dispatch outside the megastep")
+        if loop["host_uploads"] != loop["megastep_dispatches"]:
+            fail.append("not one upload per megastep dispatch")
+        if loop["forced"] or loop["staging_deferred_blocks"]:
+            fail.append("the megastep loop waited for the card")
+    if fail:
+        raise SystemExit(f"chip_smoke: megastep {name}: {'; '.join(fail)}: {result}")
+    result["agreed"] = agreed
+    return result
+
+
+def megastep_capture(dev) -> dict:
+    """One megastep call at stress_soa 1M captured in a CUDA graph and
+    replayed with two other prefixes, one with a fused load and one
+    without: final world, ring, ring tags, stacked states and checksums
+    bit-equal to an eager call on the same ring."""
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.ops.megastep import init_device_ring, make_megastep_fn
+    from bevy_ggrs_tpu_torch.ops.packing import pack_prefix, pack_row, repeat_last_row
+    from bevy_ggrs_tpu_torch.utils.tree import tree_flatten
+
+    app = stress_soa.make_app(n_entities=SIZES["bench_entities"], device=dev)
+    k_max = SIZES["megastep_coalesce"] + 8  # the P2P pair's: coalesce + window
+    slots = 8 + 1 + SIZES["megastep_coalesce"] + 1
+    fn = make_megastep_fn(app.reg, app.step, app.packed_spec, app.fps, seed=app.seed,
+                          retention=app.retention, k_max=k_max, ring_slots=slots)
+    spec = app.packed_spec
+    host = torch.empty((k_max + 1, spec.width), dtype=torch.int8).pin_memory()
+
+    def stage(start, n_real, has_load=0, load_slot=0):
+        buf = host.numpy()
+        pack_prefix(buf, start, n_real, has_load, load_slot)
+        for i in range(n_real):
+            pack_row(spec, buf, i, np.array([(start + i) % 16, 3], np.uint8),
+                     np.zeros(2, np.int8))
+        repeat_last_row(buf, n_real, k_max)
+        rows.copy_(host, non_blocking=True)
+
+    world = app.init_state()
+    ring, tags = init_device_ring(world, slots)
+    rows = torch.empty((k_max + 1, spec.width), dtype=torch.int8, device=dev)
+    stage(0, k_max)  # fill the ring eagerly
+    world, ring, tags, _, _ = fn(world, ring, tags, rows)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm_ring = [t.clone() for t in tree_flatten(ring)]
+        fn(world, ring, tags, rows)
+        for t, w in zip(tree_flatten(ring), warm_ring):
+            t.copy_(w)
+    torch.cuda.current_stream().wait_stream(side)
+    sync(dev)
+    stage(k_max, k_max)
+    graph = torch.cuda.CUDAGraph()
+    cf.launches = 0
+    with torch.cuda.graph(graph):
+        captured = fn(world, ring, tags, rows)
+    capture_launches = cf.launches
+    cases = {"fused_load": (5, 7, 1, 5 % slots), "no_load": (k_max + 3, k_max - 2, 0, 0)}
+    checked = {}
+    for name, prefix in cases.items():
+        ring0 = [t.clone() for t in tree_flatten(ring)]
+        tags0 = tags.clone()
+        stage(*prefix)
+        graph.replay()
+        got = [t.clone() for t in tree_flatten((captured[0], captured[3]))] + [
+            captured[4].clone(), *[t.clone() for t in tree_flatten(ring)], tags.clone()]
+        for t, w in zip(tree_flatten(ring), ring0):
+            t.copy_(w)
+        tags.copy_(tags0)
+        out = fn(world, ring, tags, rows)
+        want = tree_flatten((out[0], out[3])) + [out[4], *tree_flatten(ring), tags]
+        sync(dev)
+        if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"chip_smoke: megastep capture: the replay ({name}) "
+                             "differs from the eager call")
+        checked[name] = {"start_frame": prefix[0], "n_real": prefix[1],
+                         "has_load": prefix[2], "load_slot": prefix[3],
+                         "tensors_bit_equal": len(got)}
+    if capture_launches != 1:
+        raise SystemExit(f"chip_smoke: the megastep capture launched the fold "
+                         f"{capture_launches} times, not once")
+    eager_ms = time_ms(lambda: fn(world, ring, tags, rows), 5)
+    replay_ms = time_ms(graph.replay, 5)
+    return {"entities": SIZES["bench_entities"], "k_max": k_max, "ring_slots": slots,
+            "replays": checked, "eager_call_ms": eager_ms, "graph_replay_ms": replay_ms}
+
+
+def phase_megastep(dev, card: str) -> int:
+    """(a) SyncTest stress_soa 100k at d=7, megastep on against the
+    per-tick runner: equal checksum streams; (b) P2P pairs at coalesce 4
+    (stress_soa 1M, fixed_point), megastep on against the default runner:
+    equal confirmed checksums, fixed_point's equal to a CPU megastep
+    pair's; (c) the program's CUDA-graph capture.  Returns the megastep
+    loops' fold launches."""
+    from bevy_ggrs_tpu_torch.models import fixed_point, stress_soa
+
+    make = lambda: stress_soa.make_app(  # noqa: E731
+        n_entities=SIZES["synctest_stress_entities"], device=dev)
+    frames = SIZES["megastep_synctest_frames"]
+    ms = synctest(make(), frames, megastep=True, check_fold=True)
+    ref = synctest(make(), frames, check_fold=True)
+    if ms.pop("stream") != ref.pop("stream"):
+        raise SystemExit("chip_smoke: megastep SyncTest: the checksum stream differs "
+                         "from the per-tick runner's")
+    emit("megastep_synctest", model="stress_soa_100k", card=card, streams_equal=True,
+         megastep=ms, per_tick=ref)
+    launches = ms["kernel_launches"]
+    n = SIZES["p2p_stress_entities"]
+    pairs = {f"stress_soa_{n}": lambda: stress_soa.make_app(n_entities=n, device=dev),
+             "fixed_point": lambda: fixed_point.make_app(device=dev)}
+    for seed, (name, make_app) in enumerate(pairs.items()):
+        runs = {mode: megastep_pair(name, make_app, dev, seed, mode == "megastep")
+                for mode in ("megastep", "default")}
+        a, b = runs["megastep"].pop("agreed"), runs["default"].pop("agreed")
+        shared = sorted(set(a) & set(b))
+        few = SIZES["megastep_frames"] // SIZES["megastep_coalesce"] // 2
+        if len(shared) < few or any(a[f] != b[f] for f in shared):
+            raise SystemExit(f"chip_smoke: megastep {name}: confirmed checksums differ "
+                             f"from the default runner's ({len(shared)} shared frames)")
+        if name == "fixed_point":
+            cpu = megastep_pair(name, lambda: fixed_point.make_app(device="cpu"),
+                                torch.device("cpu"), seed, True).pop("agreed")
+            on_cpu = [f for f in shared if f in cpu]
+            if len(on_cpu) < few or any(a[f] != cpu[f] for f in on_cpu):
+                raise SystemExit("chip_smoke: megastep fixed_point: the card's confirmed "
+                                 "checksums differ from the CPU pair's")
+            runs["megastep"]["frames_equal_to_cpu_pair"] = len(on_cpu)
+        launches += runs["megastep"]["fold_launches"]
+        for r in runs.values():
+            emit("megastep_pair", card=card, agree_with_other_mode_at_frames=len(shared), **r)
+    emit("megastep_capture", card=card, **megastep_capture(dev))
+    return launches
+
+
+def particles_pair(dev, seed: int) -> dict:
+    """The reference's default particles (rate 100, ttl 120) as a P2P pair
+    over phase ``megastep``'s channel (prediction window 8), the loop past
+    10 warm-up frames under ``set_sync_debug_mode("error")``: no desync,
+    equal confirmed checksums; peer 0's game recorded and replayed through
+    ``ReplaySession`` on the card to the same checksums."""
+    from bevy_ggrs_tpu_torch import GgrsRunner, InputRecorder, ReplaySession
+    from bevy_ggrs_tpu_torch.models import particles
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    make = lambda: particles.make_app(  # noqa: E731
+        rate=SIZES["particles_rate"], ttl=SIZES["particles_ttl"], device=dev)
+    net, runners, seen = channel_pair(make, seed)
+    rec = InputRecorder.for_app(runners[0].app)
+    confirm = runners[0].on_confirmed
+    runners[0].on_advance = rec.on_advance
+    runners[0].on_confirmed = lambda f: (rec.on_confirmed(f), confirm(f))
+    sync_sessions(runners, net)
+    kept = keep_stacks(runners)
+    frames = SIZES["particles_frames"]
+    warm = 10
+    drive(runners, warm, net)  # the first resims' allocations
+    sync(dev)
+    resims0 = sum(r.resims for r in runners)
+    cf.launches = 0
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        drive(runners, frames - warm, net)
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = cf.launches
+    resims = sum(r.resims for r in runners) - resims0
+    for r in runners:
+        r.finish()
+    agreed = agreed_checksums(seen)
+    stack_shapes = check_stacks("particles pair", kept) if cuda else []
+    del kept
+    result = {"capacity": runners[0].app.reg.capacity, "frames": frames, "seconds": dt,
+              "sync_debug_mode": "error" if cuda else "default",
+              "frames_per_s_per_peer": [(r.frame - warm) / dt for r in runners],
+              "rollbacks": [r.rollbacks for r in runners], "resim_calls": resims,
+              "fold_launches": launches, "desyncs": [len(desyncs(r)) for r in runners],
+              "confirmed_frames_agreed": len(agreed),
+              "active_particles": int(runners[0].world.alive.sum()),
+              "path_stacks_bit_exact": stack_shapes}
+    if any(result["desyncs"]) or len(agreed) < frames // 2 or runners[1].rollbacks == 0 \
+            or (dev.type == "cuda" and launches != resims):
+        raise SystemExit(f"chip_smoke: particles pair: {result}")
+    replayer = GgrsRunner(make(), ReplaySession(rec))
+    replayed = {}
+    while not replayer.session.finished:
+        replayer.tick()
+        replayed[replayer.frame] = replayer._world_checksum
+    # a replay labels the initial state with the first recorded frame, so
+    # its frame f + 1 holds the live frame f (as in the JAX package)
+    same = [f for f in agreed if f + 1 in replayed]
+    if len(same) < frames // 2 or any(replayed[f + 1]() != agreed[f] for f in same):
+        raise SystemExit(f"chip_smoke: particles replay differs from the live game "
+                         f"({len(same)} frames compared)")
+    result["replay_frames_equal"] = len(same)
+    return result
+
+
+def crowd_lanes(dev) -> dict:
+    """A 16-lane wave of crowd lobbies against each lobby's solo resim:
+    reported, not failed (long reductions may round differently with the
+    lane count); a ``vmap`` fallback fails."""
+    from bevy_ggrs_tpu_torch.models import crowd
+    from bevy_ggrs_tpu_torch.ops import batch as TB
+    from bevy_ggrs_tpu_torch.ops import resim as R
+    from bevy_ggrs_tpu_torch.utils.tree import tree_flatten
+
+    app = crowd.make_app(n_per_team=SIZES["crowd_per_team"], device=dev)
+    m, k = SIZES["crowd_lanes"], SIZES["crowd_lane_k"]
+    rng = np.random.default_rng(8)
+    inputs = on_device(rng.integers(0, 16, (m, k, 2)).astype(np.uint8), dev)
+    status = on_device(np.zeros((m, k, 2), np.int8), dev)
+    starts = on_device(np.arange(m, dtype=np.int32) * 37, dev)
+    world = app.init_state()
+    # distinct worlds: lobby b starts from b frames of its own inputs
+    worlds = []
+    for b in range(m):
+        w = world
+        if b:
+            w, _, _ = app.resim_fn(world, inputs[b, :1].expand(b, 2), status[b, :1].expand(
+                b, 2), 0)
+        worlds.append(w)
+    R.vmap_fallbacks = 0
+    finals, stacked, checks = TB.make_batched_resim_fn(app)(
+        TB.stack_worlds(worlds), inputs, status, starts)
+    fallbacks = R.vmap_fallbacks
+    wave_stack = check_fold_on("crowd lanes", app.reg, flat_branches(stacked))
+    equal, max_diff = 0, 0.0
+    for b in range(m):
+        one, one_stacked, one_checks = app.resim_fn(worlds[b], inputs[b], status[b],
+                                                    int(starts[b]))
+        same = torch.equal(one_checks, checks[b]) and all(
+            torch.equal(x, y) for x, y in zip(tree_flatten(one_stacked),
+                                              tree_flatten(TB.unstack_world(stacked, b))))
+        equal += same
+        for x, y in zip(tree_flatten(one_stacked), tree_flatten(TB.unstack_world(stacked, b))):
+            if x.dtype.is_floating_point:
+                max_diff = max(max_diff, float((x - y).abs().max()))
+    if fallbacks:
+        raise SystemExit(f"chip_smoke: crowd lanes: {fallbacks} vmap fallbacks")
+    # which of the step's reductions rounds otherwise on the lane axis: each
+    # on one world, alone and as lane 0 of 16 identical lanes under vmap
+    w = worlds[-1]
+    mf = (w.alive & ~w.despawn_pending & w.has["team"]).to(torch.float32)
+    pos, team = w.comps["pos"], w.comps["team"].long()
+    onehot = (team[:, None] == torch.arange(2, device=dev)).to(torch.float32) * mf[:, None]
+
+    def reductions(pos, mf, onehot):
+        return (torch.matmul(onehot.transpose(0, 1), pos), onehot.sum(dim=0), mf.sum(),
+                (pos * mf[:, None]).sum(dim=0))
+
+    solo = reductions(pos, mf, onehot)
+    lanes = torch.func.vmap(reductions)(*(t.expand(m, *t.shape) for t in (pos, mf, onehot)))
+    names = ("team_sum_matmul", "team_count_sum", "total_sum", "center_of_mass_sum")
+    ops = {n: torch.equal(a, b[0]) for n, a, b in zip(names, solo, lanes)}
+    return {"lanes": m, "k": k, "entities": 2 * SIZES["crowd_per_team"],
+            "lanes_bit_equal_to_solo": equal, "max_abs_float_diff": max_diff,
+            "vmap_fallbacks": fallbacks, "reductions_bit_equal_on_lane_axis": ops,
+            "wave_stack_bit_exact": wave_stack}
+
+
+def room_pair(dev) -> dict:
+    """A fixed_point pair over ``RoomServer`` and ``RoomSocket``s on
+    loopback (relay mode), ``room_frames`` frames: in sync."""
+    from bevy_ggrs_tpu_torch import (
+        DesyncDetection,
+        GgrsRunner,
+        PlayerType,
+        RoomServer,
+        RoomSocket,
+        SessionBuilder,
+        assign_handles,
+        wait_for_players,
+    )
+    from bevy_ggrs_tpu_torch.models import fixed_point
+
+    server = RoomServer(host="127.0.0.1")
+    socks = [RoomSocket(server.local_addr, "smoke", peer_id=f"peer-{i}", mode="relay",
+                        host="127.0.0.1") for i in range(2)]
+    try:
+        for sock in socks:
+            wait_for_players(sock, 2, timeout_s=10.0, server=server)
+        runners, seen = [], []
+        for i, sock in enumerate(socks):
+            app = fixed_point.make_app(device=dev)
+            b = (SessionBuilder.for_app(app).with_input_delay(1)
+                 .with_desync_detection_mode(DesyncDetection.on(1)))
+            for h, peer in assign_handles(sock).items():
+                b = (b.add_player(PlayerType.LOCAL, h) if peer == sock.peer_id
+                     else b.add_player(PlayerType.REMOTE, h, peer))
+            holder = []
+            runners.append(GgrsRunner(app, b.start_p2p_session(sock),
+                                      read_inputs=session_frame_inputs(i, holder)))
+            holder.append(runners[-1])
+            seen.append(record_confirmed(runners[-1]))
+        for _ in range(20000):
+            server.poll()
+            for r in runners:
+                r.update(0.0)
+            if all(r.session.current_state().value == "running" for r in runners):
+                break
+            time.sleep(0.0005)
+        else:
+            raise SystemExit("chip_smoke: the room pair never synchronized")
+        kept = keep_stacks(runners)
+        for _ in range(SIZES["room_frames"]):
+            server.poll()
+            for r in runners:
+                r.update(1.0 / 60.0)
+        for r in runners:
+            r.finish()
+        agreed = agreed_checksums(seen)
+        result = {"frames": [r.frame for r in runners], "mode": "relay",
+                  "desyncs": [len(desyncs(r)) for r in runners],
+                  "confirmed_frames_agreed": len(agreed),
+                  "path_stacks_bit_exact": (check_stacks("room pair", kept)
+                                            if dev.type == "cuda" else [])}
+        if any(result["desyncs"]) or len(agreed) < SIZES["room_frames"] // 2:
+            raise SystemExit(f"chip_smoke: room pair out of sync: {result}")
+        return result
+    finally:
+        server.close()
+        for sock in socks:
+            sock.close()
+
+
+def phase_models(dev, card: str) -> int:
+    """particles (the default pair, then 1M capacity under SyncTest with
+    and without ``QuantizeStrategy``, its draws against the CPU's, a
+    checkpoint, a replay), crowd (SyncTest and a 16-lane wave), pong
+    (SyncTest to a score) and a room pair.  Returns the fold launches of
+    the driven runs."""
+    import io
+
+    from bevy_ggrs_tpu_torch import GgrsRunner, SessionBuilder
+    from bevy_ggrs_tpu_torch.models import crowd, particles, pong
+    from bevy_ggrs_tpu_torch.snapshot import persist
+    from bevy_ggrs_tpu_torch.utils import threefry
+
+    pair = particles_pair(dev, seed=3)
+    emit("models_particles_pair", card=card, **pair)
+    launches = pair["fold_launches"]
+    big = {}
+    for quantize in (False, True):
+        app = particles.make_app(rate=SIZES["particles_big_rate"], ttl=SIZES["particles_ttl"],
+                                 quantize=quantize, device=dev)
+        r = synctest(app, SIZES["particles_big_frames"], keep_runner=True, check_fold=True)
+        r.pop("stream")
+        runner = r.pop("runner")
+        launches += r["kernel_launches"]
+        zeros = on_device(np.zeros((8, 2), np.uint8), dev)
+        prof = device_profile(lambda: app.resim_fn(runner.world, zeros, zeros.to(torch.int8),
+                                                   runner.frame), 2)
+        r["device_events_per_frame"] = prof["device_events_per_call"] / 8
+        r["host_ms_per_frame"] = prof["host_ms_per_call"] / 8
+        r["device_ms_per_frame"] = prof["device_ms_per_call"] / 8
+        # one frame's draws alone (the step's four threefry hashes on the
+        # live counter): their share of the frame's events and times
+        counter = runner.world.res["rng_counter"]
+
+        def draws(app=app, counter=counter):
+            kv, kp = threefry.split(threefry.fold_in(threefry.prng_key(app.seed), counter))
+            return (threefry.uniform(kv, (SIZES["particles_big_rate"], 3), -2.0, 2.0),
+                    threefry.uniform(kp, (SIZES["particles_big_rate"],)))
+
+        drawn = device_profile(draws, 16)
+        r["draws"] = {
+            "device_events_per_frame": drawn["device_events_per_call"],
+            "host_ms_per_frame": drawn["host_ms_per_call"],
+            "device_ms_per_frame": drawn["device_ms_per_call"],
+            "share_of_device_events": (drawn["device_events_per_call"]
+                                       / r["device_events_per_frame"]),
+            "share_of_host_ms": drawn["host_ms_per_call"] / r["host_ms_per_frame"],
+            "share_of_device_ms": (drawn["device_ms_per_call"] / r["device_ms_per_frame"]
+                                   if r["device_ms_per_frame"] else None)}
+        big[quantize] = (app, runner)
+        emit("models_particles_synctest", card=card, capacity=app.reg.capacity,
+             rate=SIZES["particles_big_rate"], quantize=quantize, **r)
+    # the draws on the card against the same functions on the CPU
+    rate = SIZES["particles_big_rate"]
+    for c in (0, 7, 2**31 + 5, 2**32 - 1):
+        draws = []
+        for d in (dev, torch.device("cpu")):
+            key = threefry.fold_in(threefry.prng_key(0), torch.tensor(c, device=d))
+            kv, kp = threefry.split(key)
+            draws.append([threefry.uniform(kv, (rate, 3), -2.0, 2.0).cpu(),
+                          threefry.uniform(kp, (rate,)).cpu()])
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(*draws)):
+            raise SystemExit(f"chip_smoke: particles' draws on the card differ from "
+                             f"the CPU's at counter {c}")
+    # checkpoint the 1M world, load it back, advance both
+    app, runner = big[False]
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    persist.save_world(buf, app.reg, runner.world, frame=runner.frame)
+    save_s = time.perf_counter() - t0
+    buf.seek(0)
+    ck = persist.load_checkpoint(buf, app.reg, device=dev)
+    digest = persist.schema_digest(app.reg)
+    inputs = on_device(np.full((8, 2), 8, np.uint8), dev)
+    status = on_device(np.zeros((8, 2), np.int8), dev)
+    a = app.resim_fn(runner.world, inputs, status, runner.frame)[2]
+    b = app.resim_fn(ck.world, inputs, status, ck.frame)[2]
+    if ck.frame != runner.frame or not torch.equal(a, b) or digest != PARTICLES_BIG_DIGEST:
+        raise SystemExit(f"chip_smoke: the particles checkpoint does not resume the "
+                         f"same game (digest {digest})")
+    emit("models_checkpoint", card=card, capacity=app.reg.capacity,
+         bytes=buf.getbuffer().nbytes, save_s=save_s, frames_advanced=8,
+         checksums_equal=True, schema_digest=digest)
+    del big, app, runner, ck
+    gc.collect()
+    # crowd: SyncTest and a wave of lobbies
+    r = synctest(crowd.make_app(n_per_team=SIZES["crowd_per_team"], device=dev),
+                 SIZES["crowd_frames"], check_fold=True)
+    r.pop("stream")
+    launches += r["kernel_launches"]
+    emit("models_crowd", card=card, entities=2 * SIZES["crowd_per_team"], synctest=r,
+         wave=crowd_lanes(dev))
+    # pong: player 1 hides at the top until a ball gets past it
+    r = synctest(pong.make_app(device=dev), SIZES["pong_frames"], keep_runner=True,
+                 read_inputs=lambda hs: {0: np.uint8(0), 1: np.uint8(pong.UP)},
+                 check_fold=True)
+    r.pop("stream")
+    score = r.pop("runner").world.res["score"].tolist()
+    launches += r["kernel_launches"]
+    if sum(score) < 1:
+        raise SystemExit(f"chip_smoke: pong reached no score in {SIZES['pong_frames']} "
+                         "frames")
+    emit("models_pong", card=card, score=score, **r)
+    emit("models_room", card=card, **room_pair(dev))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2323,6 +2972,7 @@ def main() -> int:
     by_path = {"resim": launches, "p2p": phase_p2p(dev),
                "pipeline": phase_pipeline(dev, card),
                **phase_speculation(dev, card), "batched": phase_batched(dev, card),
+               "megastep": phase_megastep(dev, card), "models": phase_models(dev, card),
                "spectator": phase_spectator(dev), "native": phase_native(dev)}
     print(json.dumps({"kernels": [{
         "name": "checksum_fold",

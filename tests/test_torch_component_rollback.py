@@ -247,3 +247,32 @@ def jax_tree_numpy(tree):
     import jax
 
     return jax.tree.map(np.asarray, tree)
+
+
+def test_port_stored_form_loads_in_the_jax_package():
+    """The port's bf16 stored form crosses into the JAX package: its raw
+    ``|V2`` words, viewed as ``ml_dtypes.bfloat16``, build a JAX stored
+    world that loads to the port's live state bit for bit."""
+    import jax
+
+    rng = np.random.default_rng(4)
+    vals = (rng.standard_normal((16, 2)) * 100).astype(np.float32)
+    j_reg, t_reg = JS.Registry(16), TS.Registry(16)
+    j_reg.register_component("x", (2,), jnp.float32, strategy=J.QuantizeStrategy())
+    t_reg.register_component("x", (2,), torch.float32, strategy=TS.QuantizeStrategy())
+    t_stored = t_reg.store_state(dataclasses.replace(t_reg.init_state("cpu"),
+                                                     comps={"x": torch.from_numpy(vals)}))
+    leaves = world_to_numpy(t_stored)
+    assert leaves["comps"]["x"].dtype == np.dtype("V2")
+
+    def as_jax(a):
+        return jnp.asarray(a.view(ml_dtypes.bfloat16) if a.dtype == np.dtype("V2") else a)
+
+    j_stored = JS.WorldState(**{f.name: jax.tree.map(as_jax, leaves[f.name])
+                                for f in dataclasses.fields(JS.WorldState)})
+    assert j_stored.comps["x"].dtype == jnp.bfloat16
+    j_live = np.asarray(j_reg.load_state(j_stored).comps["x"])
+    t_live = t_reg.load_state(t_stored).comps["x"].numpy()
+    assert j_live.dtype == np.float32
+    assert np.array_equal(j_live.view(np.uint32), t_live.view(np.uint32))
+    assert not np.array_equal(j_live, vals)  # the stored form really is lossy

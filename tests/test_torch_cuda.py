@@ -641,3 +641,150 @@ def test_batched_runner_launches_flat_in_lobby_count(cuda):
                         if e.device_type == torch.autograd.DeviceType.CUDA
                         and not getattr(e, "is_user_annotation", False))
     assert counts[4] == counts[16] > 0, counts
+
+
+# -- the megastep and the game surface ---------------------------------------------
+
+
+def _megastep_synctest(make, megastep, cuda, ticks=40, coalesce=1):
+    from bevy_ggrs_tpu_torch import SyncTestSession
+
+    app = make()
+    # every comparison deferred to finish(), after the sync-checked loop
+    session = SyncTestSession(num_players=2, input_shape=(), input_dtype=np.uint8,
+                              check_distance=4, compare_interval=2 * ticks)
+    runner = GgrsRunner(app, session,
+                        read_inputs=lambda hs: {h: np.uint8((runner.frame // 3 + h) & 0xF)
+                                                for h in hs},
+                        on_mismatch=lambda e: (_ for _ in ()).throw(e),
+                        megastep=megastep, coalesce_frames=coalesce)
+    cf.launches = 0  # the runner's initial world checksum is not the path's
+    refs = []
+    for t in range(ticks // coalesce):
+        if megastep and t >= 2:
+            # past the first dispatches' allocations, the megastep loop
+            # (the step included) makes no host sync
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner.update(coalesce / 60)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        refs.append(runner._world_checksum)
+    runner.finish()
+    return runner, [ref() for ref in refs], cf.launches
+
+
+@pytest.mark.parametrize("model", ["stress_soa", "particles", "crowd", "pong"])
+def test_megastep_equals_per_tick_runner_on_card(cuda, model):
+    """SyncTest (a fused load every tick) and coalesced flushes: the
+    megastep's checksum stream is the per-tick runner's, bit for bit; one
+    fold launch and one upload per megastep dispatch."""
+    from bevy_ggrs_tpu_torch.models import crowd, particles, pong
+
+    make = {"stress_soa": lambda: stress_soa.make_app(n_entities=N, device=cuda),
+            "particles": lambda: particles.make_app(rate=50, ttl=20, device=cuda),
+            "crowd": lambda: crowd.make_app(n_per_team=256, device=cuda),
+            "pong": lambda: pong.make_app(device=cuda)}[model]
+    for coalesce in (1, 4):
+        ms, a, launches = _megastep_synctest(make, True, cuda, coalesce=coalesce)
+        _, b, _ = _megastep_synctest(make, False, cuda, coalesce=coalesce)
+        assert a == b
+        st = ms.stats()
+        assert st["fused_ring_loads"] > 0
+        assert launches == st["megastep_dispatches"] == st["host_uploads"] > 0
+
+
+def test_megastep_capture_replays_bit_exact(cuda):
+    """One megastep call captured in a CUDA graph and replayed with a
+    fused-load prefix and a plain one equals the eager call on the same
+    ring, output for output."""
+    from bevy_ggrs_tpu_torch.models import particles
+    from bevy_ggrs_tpu_torch.ops.megastep import init_device_ring, make_megastep_fn
+    from bevy_ggrs_tpu_torch.ops.packing import repeat_last_row
+
+    app = particles.make_app(rate=64, ttl=10, device=cuda)
+    k_max, slots = 6, 9
+    fn = make_megastep_fn(app.reg, app.step, app.packed_spec, app.fps, seed=app.seed,
+                          retention=app.retention, k_max=k_max, ring_slots=slots)
+    spec = app.packed_spec
+    host = torch.zeros((k_max + 1, spec.width), dtype=torch.int8).pin_memory()
+    rows = torch.zeros((k_max + 1, spec.width), dtype=torch.int8, device=cuda)
+
+    def stage(start, n, load=0, slot=0):
+        buf = host.numpy()
+        pack_prefix(buf, start, n, load, slot)
+        for i in range(n):
+            pack_row(spec, buf, i, np.array([i, 3], np.uint8), np.zeros(2, np.int8))
+        repeat_last_row(buf, n, k_max)
+        rows.copy_(host)
+
+    world = app.init_state()
+    ring, tags = init_device_ring(world, slots)
+    stage(0, k_max)
+    world, ring, tags, _, _ = fn(world, ring, tags, rows)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(world, tree_map(lambda t: t.clone(), ring), tags.clone(), rows)  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = fn(world, ring, tags, rows)
+    for prefix in ((2, 4, 1, 2), (k_max + 1, 3, 0, 0)):
+        ring0, tags0 = [t.clone() for t in tree_flatten(ring)], tags.clone()
+        stage(*prefix)
+        graph.replay()
+        got = [t.clone() for t in tree_flatten((cap[0], cap[3]))] + [cap[4].clone()] + [
+            t.clone() for t in tree_flatten(ring)] + [tags.clone()]
+        for t, w in zip(tree_flatten(ring), ring0):
+            t.copy_(w)
+        tags.copy_(tags0)
+        out = fn(world, ring, tags, rows)
+        want = tree_flatten((out[0], out[3])) + [out[4]] + tree_flatten(ring) + [tags]
+        assert len(got) == len(want) and all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_particles_draws_on_card_equal_cpu(cuda):
+    """threefry's draws on the card are the CPU's bits (which the CPU tests
+    hold to ``jax.random``)."""
+    from bevy_ggrs_tpu_torch.utils import threefry
+
+    for c in (0, 5, 2**31 + 1, 2**32 - 1):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            kv, kp = threefry.split(threefry.fold_in(threefry.prng_key(0),
+                                                     torch.tensor(c, device=dev)))
+            out.append([threefry.uniform(kv, (101, 3), -2.0, 2.0).cpu(),
+                        threefry.uniform(kp, (101,)).cpu(),
+                        threefry.random_bits(kv, (7,)).cpu()])
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
+
+
+def test_crowd_lanes_against_solo_on_card(cuda):
+    """A wave of crowd lobbies runs with no ``vmap`` fallback; each lane is
+    compared with its solo resim.  Bit-equality is recorded, not required:
+    long reductions may round with the lane count (ROADMAP queue C); the
+    lanes stay within 1e-4 of the solo runs."""
+    from bevy_ggrs_tpu_torch.models import crowd
+    from bevy_ggrs_tpu_torch.ops import batch as TB
+
+    app = crowd.make_app(n_per_team=512, device=cuda)
+    m, k = 8, 6
+    rng = np.random.default_rng(2)
+    inputs = torch.as_tensor(rng.integers(0, 16, (m, k, 2)).astype(np.uint8)).to(cuda)
+    status = torch.zeros((m, k, 2), dtype=torch.int8, device=cuda)
+    starts = torch.arange(m, dtype=torch.int32, device=cuda) * 5
+    worlds = [app.init_state() for _ in range(m)]
+    tr.vmap_fallbacks = 0
+    _, stacked, checks = TB.make_batched_resim_fn(app)(TB.stack_worlds(worlds), inputs,
+                                                       status, starts)
+    assert tr.vmap_fallbacks == 0
+    for b in range(m):
+        _, one, _ = app.resim_fn(worlds[b], inputs[b], status[b], int(starts[b]))
+        for x, y in zip(tree_flatten(one), tree_flatten(TB.unstack_world(stacked, b))):
+            if x.dtype.is_floating_point:
+                assert float((x - y).abs().max()) <= 1e-4
+            else:
+                assert torch.equal(x, y)

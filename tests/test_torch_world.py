@@ -188,7 +188,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "missing = [m for m in sys.argv[1:] if m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'bevy_ggrs_tpu' or m.startswith('bevy_ggrs_tpu.')]\n"
+        "       or m == 'bevy_ggrs_tpu' or m.startswith('bevy_ggrs_tpu.')\n"
+        "       or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
         "print(len(list(pkgutil.walk_packages(pkg.__path__))), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n"
     )
@@ -200,6 +201,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the many-worlds slice
     expected += ["bevy_ggrs_tpu_torch.batch_runner", "bevy_ggrs_tpu_torch.ops.batch",
                  "bevy_ggrs_tpu_torch.ops.variant_probe", "bevy_ggrs_tpu_torch.snapshot.strategy"]
+    # the megastep, the game surface and its formats
+    expected += ["bevy_ggrs_tpu_torch.ops.megastep", "bevy_ggrs_tpu_torch.utils.threefry",
+                 "bevy_ggrs_tpu_torch.snapshot.persist", "bevy_ggrs_tpu_torch.session.replay",
+                 "bevy_ggrs_tpu_torch.session.room", "bevy_ggrs_tpu_torch.models.particles",
+                 "bevy_ggrs_tpu_torch.models.crowd", "bevy_ggrs_tpu_torch.models.pong"]
     res = subprocess.run([sys.executable, "-c", code, *expected], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -209,7 +215,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
-    assert not [n for n in names if n.split(".")[0] in ("jax", "bevy_ggrs_tpu")]
+    assert not [n for n in names if n.split(".")[0] in ("jax", "bevy_ggrs_tpu", "ml_dtypes")]
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
@@ -228,6 +234,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
     for entry in (lambda: BatchedRunner(t_stress.make_app(8), [SyncTestSession(2)]),
                   lambda: BucketedWaveExecutor(t_stress.make_app(8), 4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    # this slice's entry points: the seeded App, the models, the megastep
+    # runner (its app), a checkpoint load and a replay's runner
+    from bevy_ggrs_tpu_torch.models import crowd, particles, pong
+    from bevy_ggrs_tpu_torch.snapshot.persist import load_world
+
+    for entry in (lambda: App(seed=3), lambda: particles.make_app(rate=2),
+                  lambda: crowd.make_app(n_per_team=4), pong.make_app,
+                  lambda: load_world("unread.npz", tw.Registry(4))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
     assert resolve_device("cpu").type == "cpu"
