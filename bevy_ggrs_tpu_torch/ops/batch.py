@@ -37,12 +37,15 @@ ROADMAP A6).
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..snapshot.lazy import tree_index
+from ..telemetry.flight import flight_recorder
+from ..telemetry.metrics import LATENCY_MS_BUCKETS, registry
 from ..utils import staging
 from ..utils.staging import StagingQueue
 from ..utils.tree import tree_map
@@ -209,7 +212,13 @@ class BucketedWaveExecutor:
     and start frames (3 copies), ``run_wave_packed`` one buffer.
     Counters: ``dispatch_count``, ``compile_count`` (programs
     built, per kind and bucket), :attr:`bucket_hist`, ``host_uploads`` and
-    ``packed_upload_bytes``, all in :meth:`stats`."""
+    ``packed_upload_bytes``, all in :meth:`stats`; while telemetry is on,
+    the JAX executor's pre-bound families (``batched_wave_dispatches_total``,
+    ``batched_program_compiles_total``, ``uploads_per_dispatch``,
+    ``packed_upload_bytes``).  :attr:`compile_ms` holds each ``(kind,
+    bucket)`` program's first-dispatch wall time, also recorded in the
+    flight ring and (telemetry on) ``program_compile_ms``: eager torch
+    compiles nothing, so it times the first call's host work."""
 
     def __init__(self, app, k_max: int):
         _refuse_canonical(app)
@@ -224,6 +233,27 @@ class BucketedWaveExecutor:
         self.bucket_hist: Dict[int, int] = {b: 0 for b in self.buckets}
         self.host_uploads = 0
         self.packed_upload_bytes = 0
+        self.compile_ms: Dict[str, float] = {}
+        self._timed: set = set()
+        self._owner = "wave"
+        reg = registry()
+        self._m_dispatches = reg.bind_counter(
+            "batched_wave_dispatches_total", "wave dispatches through the bucketed executor")
+        self._m_compiles = reg.bind_counter(
+            "batched_program_compiles_total", "bucketed wave programs built (kind x bucket)")
+        self._m_uploads = reg.bind_histogram(
+            "uploads_per_dispatch",
+            "host->device uploads issued per fused dispatch (1 on the packed path)",
+            buckets=(1, 2, 3, 4, 8))
+        self._m_packed_bytes = reg.bind_counter(
+            "packed_upload_bytes", "bytes staged through packed single-upload buffers")
+
+    def _note_uploads(self, n: int, nbytes: int = 0) -> None:
+        self.host_uploads += n
+        self._m_uploads.observe(n)
+        if nbytes:
+            self.packed_upload_bytes += nbytes
+            self._m_packed_bytes.inc(nbytes)
 
     def bucket_for(self, k_hot: int) -> int:
         """Smallest bucket >= ``k_hot`` (raises beyond ``k_max``)."""
@@ -236,7 +266,30 @@ class BucketedWaveExecutor:
         if fn is None:
             fn = self._fns[(kind, bucket)] = _BUILDERS[kind](self.app, bucket)
             self.compile_count += 1
+            self._m_compiles.inc()
         return fn
+
+    def _dispatch(self, kind: str, bucket: int, *args):
+        """Call the ``(kind, bucket)`` wave program, timing its first call
+        (:attr:`compile_ms`); later calls pay one set lookup."""
+        key = (kind, bucket)
+        if key in self._timed:
+            return self._fns[key](*args)
+        fn = self._get_fn(kind, bucket)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._timed.add(key)
+        self.compile_ms[f"{kind}_k{bucket}"] = round(ms, 3)
+        flight_recorder().record("compile", owner=self._owner, program=kind, k=bucket,
+                                 ms=round(ms, 3))
+        reg = registry()
+        if reg.enabled:
+            reg.histogram(
+                "program_compile_ms",
+                "wall ms of each program variant's first dispatch (trace+compile)",
+                buckets=LATENCY_MS_BUCKETS).observe(ms, owner=self._owner, kind=kind)
+        return out
 
     def _upload(self, name: str, host) -> torch.Tensor:
         """``host`` (a numpy view) on the device: as it is for a CPU world
@@ -264,6 +317,7 @@ class BucketedWaveExecutor:
         bucket = self.bucket_for(k_hot)
         self.dispatch_count += 1
         self.bucket_hist[bucket] += 1
+        self._m_dispatches.inc()
         return ks, bucket, all(k == bucket for k in ks)
 
     def run_wave(self, worlds, inputs, status, starts, ks):
@@ -277,12 +331,12 @@ class BucketedWaveExecutor:
         st = self._upload("status", status[:, :bucket])
         starts = self._upload("starts", np.asarray(starts, np.int32)
                               if not isinstance(starts, torch.Tensor) else starts)
-        self.host_uploads += 3
+        self._note_uploads(3)
         if exact:
-            finals, stacked, checks = self._get_fn("exact", bucket)(worlds, inp, st, starts)
+            finals, stacked, checks = self._dispatch("exact", bucket, worlds, inp, st, starts)
         else:
-            finals, stacked, checks = self._get_fn("padded", bucket)(
-                worlds, inp, st, starts, ks)
+            finals, stacked, checks = self._dispatch("padded", bucket, worlds, inp, st,
+                                                     starts, ks)
         return bucket, finals, stacked, checks
 
     def run_wave_packed(self, worlds, packed, ks):
@@ -292,13 +346,10 @@ class BucketedWaveExecutor:
         :meth:`run_wave`.  The whole wave is ONE upload."""
         ks, bucket, exact = self._plan(ks)
         rows = self._upload("packed", packed[:, :bucket + 1])
-        self.host_uploads += 1
-        self.packed_upload_bytes += rows.numel()
+        self._note_uploads(1, rows.numel())
         wave = PackedWave(rows, tuple(ks))
-        if exact:
-            finals, stacked, checks = self._get_fn("packed_exact", bucket)(worlds, wave)
-        else:
-            finals, stacked, checks = self._get_fn("packed_padded", bucket)(worlds, wave)
+        kind = "packed_exact" if exact else "packed_padded"
+        finals, stacked, checks = self._dispatch(kind, bucket, worlds, wave)
         return bucket, finals, stacked, checks
 
     def staging_waits(self) -> Tuple[int, int]:
@@ -315,6 +366,7 @@ class BucketedWaveExecutor:
             "bucket_hist": {k: v for k, v in self.bucket_hist.items() if v},
             "host_uploads": self.host_uploads,
             "packed_upload_bytes": self.packed_upload_bytes,
+            "compile_ms": dict(self.compile_ms),
         }
 
 

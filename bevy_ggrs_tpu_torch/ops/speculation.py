@@ -21,22 +21,29 @@ stream, fenced by a CUDA event: the JAX package commits that buffer
 synchronously, the port never waits on the host for it.  Cached branch
 states are views of the draft's ``[M, depth, ...]`` stack.
 
-Not ported yet (ROADMAP A13): the telemetry registry's metric families and
-the ``devmem`` accounting of the cache's bytes; the counters are plain
-attributes (``hits``, ``misses``, ``branches_evaluated``,
-``bytes_evicted``, ``draft_dispatches``, ``host_uploads``,
-``packed_upload_bytes``, and the ``cached_bytes`` property).
+The counters are plain attributes (``hits``, ``misses``,
+``branches_evaluated``, ``bytes_evicted``, ``draft_dispatches``,
+``host_uploads``, ``packed_upload_bytes``, and the ``cached_bytes``
+property), mirrored while telemetry is on into the JAX cache's pre-bound
+families (``uploads_per_dispatch``, ``packed_upload_bytes``,
+``draft_dispatches_total``; the runner counts ``speculation_hits_total`` /
+``speculation_misses_total`` at its lookups).  The cache's bytes are a
+device-memory row (``speculation<n>/branch_cache``) re-noted whenever an
+entry comes or goes.
 """
 
 from __future__ import annotations
 
 import itertools
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..telemetry import devmem
+from ..telemetry.metrics import registry
 from ..utils.frames import frame_gt, frame_lt
 from ..utils.mem import tree_storage_bytes
 from ..utils.staging import StagingQueue
@@ -102,16 +109,35 @@ class SpeculationCache:
         self._stage_shape = (0, 0)
         self.host_uploads = 0
         self.packed_upload_bytes = 0
+        reg = registry()
+        self._m_uploads = reg.bind_histogram(
+            "uploads_per_dispatch",
+            "host->device uploads issued per fused dispatch (1 on the packed path)",
+            buckets=(1, 2, 3, 4, 8))
+        self._m_packed_bytes = reg.bind_counter(
+            "packed_upload_bytes", "bytes staged through packed single-upload buffers")
+        self._m_drafts = reg.bind_counter(
+            "draft_dispatches_total",
+            "speculative draft dispatches issued into idle pipeline slots "
+            "/ spare wave lanes")
+        # the branch cache pins whole speculated worlds: a device-memory row
+        # that dies with the cache
+        self._devmem_owner = devmem.scope("speculation") + "/branch_cache"
+        weakref.finalize(self, devmem.forget, self._devmem_owner)
 
     @property
     def cached_bytes(self) -> int:
         """Device bytes currently pinned by cached branch states."""
         return sum(self._entry_bytes.values())
 
+    def _renote(self) -> None:
+        devmem.note(self._devmem_owner, self.cached_bytes)
+
     def _account(self, start_frame: int, entry: Dict) -> None:
         # the storages the entry's views pin: the draft's whole [M, depth]
         # stack, or a branched dispatch's whole [B, K] stack
         self._entry_bytes[start_frame] = tree_storage_bytes(list(entry.values()))
+        self._renote()
 
     def _stage_packed(self, cands: np.ndarray, start_frame: int,
                       depth: int) -> PackedUpload:
@@ -149,6 +175,9 @@ class SpeculationCache:
         self.host_uploads += 1
         self.packed_upload_bytes += pk.nbytes
         self.draft_dispatches += 1
+        self._m_uploads.observe(1)
+        self._m_packed_bytes.inc(pk.nbytes)
+        self._m_drafts.inc()
         self.branches_evaluated += m * depth
         entry = {}
         for b in range(m):
@@ -228,7 +257,9 @@ class SpeculationCache:
 
     def _drop(self, frame: int) -> int:
         del self._cache[frame]
-        return self._entry_bytes.pop(frame, 0)
+        dropped = self._entry_bytes.pop(frame, 0)
+        self._renote()
+        return dropped
 
     def _trim(self) -> None:
         """Evict the OLDEST start frames past the frame cap and the device-
@@ -259,6 +290,7 @@ class SpeculationCache:
         """Drop every cached branch (and its byte accounting)."""
         self._cache.clear()
         self._entry_bytes.clear()
+        self._renote()
 
     def drain_drafts(self) -> None:
         """Wait until every issued draft has run (measurement only: the

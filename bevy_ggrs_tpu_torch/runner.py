@@ -69,20 +69,36 @@ The default dispatch path is the JAX runner's:
   option, not as a faster mode.  Leave it off unless you capture it.
 
 It serves SyncTest, P2P (Python and native core), spectator and replay
-sessions.  Not ported yet: telemetry and forensics reports (a
-``DesyncDetected`` is recorded in :attr:`GgrsRunner.events` only).
+sessions.
+
+Telemetry (``telemetry/``) rides the JAX runner's seams: a
+:class:`~.telemetry.phases.PhaseSet` times each tick's phases into the
+always-on flight recorder (and the ``tick_phase_ms`` histograms while
+telemetry is on; :meth:`GgrsRunner.stats` ``["phases"]``); rollbacks are
+attributed (``rollback_cause_total{handle}``, a flight entry each);
+dispatch, stall and tick counters, the per-peer network families (a
+:class:`~.telemetry.netstats.NetStatsSampler` attached by
+:meth:`GgrsRunner.set_session`), device-memory rows for the ring, the
+staging and the megastep ring, and a forensics report on a SyncTest
+mismatch or a ``DesyncDetected`` when a forensics directory is set.  No
+seam reads a tensor or adds a launch: the counts are host integers the
+runner holds, and off costs one boolean check per seam.  The forensics
+report is the exception, as in the JAX package: it reads the world's
+per-component checksums after a detected desync.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from collections import Counter
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from . import telemetry
 from .app import App
 from .convert import to_numpy
 from .ops.megastep import init_device_ring, make_megastep_fn
@@ -97,7 +113,9 @@ from .ops.packing import (
 from .ops.resim import slice_frame
 from .ops.speculation import SpeculationCache, SpeculationConfig
 from .session.events import (
+    DesyncDetected,
     InputStatus,
+    InvalidRequestError,
     MismatchedChecksumError,
     NotSynchronizedError,
     PredictionThresholdError,
@@ -116,11 +134,15 @@ from .snapshot.lazy import (
 )
 from .snapshot.ring import SnapshotRing
 from .snapshot.world import WorldState, active_mask
+from .telemetry import devmem
 from .utils import staging
 from .utils.frames import NULL_FRAME, frame_add
 from .utils.mem import tree_device_bytes
 from .utils.staging import StagingBuffer, StagingQueue
+from .utils.tracing import span
 from .utils.tree import tree_map
+
+_REG = telemetry.registry()
 
 
 class GgrsRunner:
@@ -295,6 +317,32 @@ class GgrsRunner:
         self._ms_k = 0  # megastep program depth (k_max)
         self._ms_slots = 0  # device ring depth R
         self._dev_frames: Dict[int, int] = {}  # slot -> resident frame
+        # Telemetry (module docstring).  Pre-bound families: a per-tick
+        # increment is one boolean check while telemetry is off.
+        self._m_ticks = _REG.bind_counter("ticks_total", "session ticks stepped")
+        self._m_dispatches = _REG.bind_counter("device_dispatches_total",
+                                               "fused resim dispatches")
+        self._m_resim_frames = _REG.bind_counter(
+            "resim_frames_total", "frames resimulated beyond the first of each dispatch")
+        self._m_donated = _REG.bind_counter("donated_dispatches_total",
+                                            "dispatches donating the input world")
+        self._m_uploads = _REG.bind_histogram(
+            "uploads_per_dispatch",
+            "host->device uploads issued per fused dispatch (1 on the packed path)",
+            buckets=(1, 2, 3, 4, 8))
+        self._m_packed_bytes = _REG.bind_counter(
+            "packed_upload_bytes", "bytes staged through packed single-upload buffers")
+        # tick-phase attribution, and the wall time of each program
+        # variant's first dispatch (compile_ms; eager torch compiles
+        # nothing, so it times the first call's allocations and setup)
+        self._phases = telemetry.PhaseSet(owner="solo")
+        self.compile_ms: Dict[str, float] = {}
+        self._seen_variants: set = set()
+        self._netstats = None  # per-peer sampler, attached by set_session
+        # device-memory rows of this runner live under one tag and die with it
+        self._devmem_tag = devmem.scope("solo")
+        weakref.finalize(self, devmem.forget_scope, self._devmem_tag)
+        self._world_nbytes = 0  # one world's bytes (set_session)
         if session is not None:
             self.set_session(session)
 
@@ -340,6 +388,9 @@ class GgrsRunner:
             # serve them
             self.spec_cache.clear()
             self._pending_speculate = []
+        self._netstats = (telemetry.NetStatsSampler(session)
+                          if session is not None and hasattr(session, "network_stats")
+                          else None)
         if session is None:
             return
         # despawn-retirement safety (ops/resim.py): slots hard-freed at
@@ -374,6 +425,10 @@ class GgrsRunner:
                     "check_distance/compare_interval"
                 )
         self.ring.set_depth(self._ring_depth(session))
+        # ring residency = stored snapshots x one world's bytes (shapes are
+        # static, so the unit is computed once per session)
+        self._world_nbytes = tree_device_bytes(self._world)
+        self.ring.set_accounting(self._devmem_tag + "/snapshot_ring", self._world_nbytes)
         # sessions may start at a nonzero frame; the native core exposes
         # current_frame as a method
         cur = getattr(session, "current_frame", 0)
@@ -405,9 +460,32 @@ class GgrsRunner:
         self._drain_events()
 
     def _report_mismatch(self, e: MismatchedChecksumError) -> None:
+        """SyncTest mismatch: timeline event and forensics report (written
+        only when a forensics directory is set), then ``on_mismatch`` (or
+        the raise)."""
+        telemetry.record("checksum_mismatch", source="synctest",
+                         frames=list(e.mismatched_frames), current_frame=e.current_frame)
+        telemetry.write_desync_report("synctest_mismatch", reg=self.app.reg,
+                                      world=self.world, frames=e.mismatched_frames)
         if self.on_mismatch is None:
             raise e
         self.on_mismatch(e)
+
+    def _report_desync(self, ev: DesyncDetected) -> None:
+        """P2P ``DesyncDetected``: timeline event and forensics report.  The
+        report carries every resolved local per-frame checksum the session
+        still holds, so two peers' reports can be frame-aligned offline
+        (:func:`~.telemetry.forensics.merge_reports`)."""
+        telemetry.record("checksum_mismatch", source="p2p", frames=[ev.frame],
+                         local_checksum=ev.local_checksum,
+                         remote_checksum=ev.remote_checksum, addr=repr(ev.addr))
+        if telemetry.forensics_dir() is None:
+            return
+        local = getattr(self.session, "_local_checksums", None) or {}
+        telemetry.write_desync_report(
+            "p2p_desync", reg=self.app.reg, world=self.world, frames=[ev.frame],
+            local_checksum=ev.local_checksum, remote_checksum=ev.remote_checksum,
+            addr=ev.addr, checksums={f: v for f, v in local.items() if isinstance(v, int)})
 
     def finish(self) -> None:
         """End-of-run hook: flush deferred checksum comparisons (a SyncTest
@@ -427,21 +505,33 @@ class GgrsRunner:
         if self.session is None:
             self.accumulator = 0.0
             return
+        ph = self._phases
+        ph.begin_tick()
         if self.pipeline:
             # last tick's landed checksum copies, before the poll, so the
             # session publishes them this tick without waiting for the card
-            self._rbq.harvest()
+            with ph.phase("readback_harvest"):
+                self._rbq.harvest()
         if hasattr(self.session, "poll_remote_clients"):
-            self.session.poll_remote_clients()
-            self._drain_events()
+            with ph.phase("net_poll"):
+                with span("PollRemoteClients"):
+                    self.session.poll_remote_clients()
+                self._drain_events()
+                if self._netstats is not None:
+                    self._netstats.poll()
+                if _REG.enabled:
+                    self._record_network_stats()
         pending: List[GgrsRequest] = []
         pending_ticks = 0
         ran_requests = False
+        stepped = 0
         while self.accumulator >= fps_delta:
             self.accumulator -= fps_delta
+            stepped += 1
             if hasattr(self.session, "frames_ahead"):
                 self.run_slow = self.session.frames_ahead() > 0
-            requests = self._step_session()
+            with ph.phase("session_step"):
+                requests = self._step_session()
             if requests:
                 pending.extend(requests)
                 pending_ticks += 1
@@ -456,7 +546,17 @@ class GgrsRunner:
         if ran_requests and not self.pipeline:
             # synchronous mode: retire this tick's device work (world and
             # checksum readbacks) before the update returns
-            self._drain_inflight()
+            with ph.phase("readback_harvest"):
+                self._drain_inflight()
+        if stepped:
+            # idle polls (sub-frame deltas, handshake spins) stay out of the
+            # flight ring.  The residency and in-flight stamps feed the
+            # trace's counter tracks, computed only while the tick records.
+            if ph.on:
+                ph.end_tick(frame=self.frame, device_bytes=devmem.total(),
+                            pipeline_depth=self._rbq.depth() if self.pipeline else 0)
+            else:
+                ph.end_tick(frame=self.frame)
 
     def tick(self) -> None:
         """Run exactly one GGRS frame."""
@@ -540,6 +640,8 @@ class GgrsRunner:
             "speculation_host_uploads": spec.host_uploads if spec else 0,
             "cache_served_frames": self.cache_served_frames,
             "rollback_service_ms": service,
+            "phases": self._phases.totals(),
+            "compile_ms": dict(self.compile_ms),
         }
 
     # -- per-session-type steps -----------------------------------------------
@@ -548,6 +650,7 @@ class GgrsRunner:
         """One session tick: its request list, or None if the tick produced
         nothing (stall, handshake, mismatch)."""
         self.ticks += 1
+        self._m_ticks.inc()
         s = self.session
         if isinstance(s, SyncTestSession):
             return self._step_synctest()
@@ -561,7 +664,8 @@ class GgrsRunner:
         for handle, value in self.read_inputs(self.local_players).items():
             s.add_local_input(handle, value)
         try:
-            return s.advance_frame()
+            with span("SessionAdvanceFrame"):
+                return s.advance_frame()
         except MismatchedChecksumError as e:
             self._report_mismatch(e)
             return None
@@ -573,9 +677,14 @@ class GgrsRunner:
             for handle, value in self.read_inputs(self.local_players).items():
                 s.add_local_input(handle, value)
         try:
-            requests = s.advance_frame()
+            with span("SessionAdvanceFrame"):
+                requests = s.advance_frame()
         except PredictionThresholdError:
             self.stalled_frames += 1
+            if _REG.enabled:
+                telemetry.count("stalled_frames_total", help="ticks skipped on stall",
+                                kind="p2p")
+                telemetry.record("stall", frame=self.frame, reason="prediction_threshold")
             return None
         except NotSynchronizedError:
             return None  # still in the sync handshake; sim time does not advance
@@ -591,53 +700,96 @@ class GgrsRunner:
             return s.advance_frame()
         except PredictionThresholdError:
             self.stalled_frames += 1  # waiting for the host's input
+            if _REG.enabled:
+                telemetry.count("stalled_frames_total", help="ticks skipped on stall",
+                                kind="spectator")
+                telemetry.record("stall", frame=self.frame, reason="waiting_for_host")
             return None
         except NotSynchronizedError:
             return None
 
     def _drain_events(self) -> None:
         """Move the session's pending events into :attr:`events` (a
-        ``DesyncDetected`` among them is recorded there, with no forensics
-        report) and hand each to ``on_event``."""
+        ``DesyncDetected`` among them also gets its timeline event and
+        forensics report) and hand each to ``on_event``."""
         if not hasattr(self.session, "events"):
             return
         for ev in self.session.events():
             self.events.append(ev)
+            if isinstance(ev, DesyncDetected):
+                self._report_desync(ev)
             if self.on_event is not None:
                 self.on_event(ev)
+
+    def _record_network_stats(self) -> None:
+        """Mirror per-peer NetworkStats into telemetry gauges plus one
+        timeline event per peer (once per host tick while telemetry is
+        on; host values only)."""
+        s = self.session
+        handles = getattr(s, "remote_handle_addr", None)
+        if handles is None:
+            if getattr(s, "is_spectator", False):
+                behind = s.frames_behind_host()
+                telemetry.gauge_set("spectator_frames_behind", behind,
+                                    "spectator catchup lag")
+                telemetry.record("network_stats", peer="host", frames_behind=behind)
+            return
+        for h in sorted(handles):
+            try:
+                st = s.network_stats(h)
+            except InvalidRequestError:
+                continue  # endpoint gone
+            if not st.is_live:
+                continue  # local / spectator / disconnected handle
+            telemetry.gauge_set("ping_ms", st.ping_ms, "round-trip ping", peer=h)
+            telemetry.gauge_set("send_queue_len", st.send_queue_len,
+                                "pending outbound inputs", peer=h)
+            telemetry.gauge_set("kbps_sent", st.kbps_sent, "outbound bandwidth", peer=h)
+            telemetry.gauge_set("local_frames_behind", st.local_frames_behind,
+                                "our frame lag vs this peer", peer=h)
+            telemetry.gauge_set("remote_frames_behind", st.remote_frames_behind,
+                                "peer's frame lag vs us", peer=h)
+            telemetry.record("network_stats", peer=h, ping_ms=st.ping_ms,
+                             send_queue_len=st.send_queue_len, kbps_sent=st.kbps_sent,
+                             local_frames_behind=st.local_frames_behind,
+                             remote_frames_behind=st.remote_frames_behind)
+        if hasattr(s, "frames_ahead"):
+            telemetry.observe("input_latency_frames", max(s.frames_ahead(), 0),
+                              "frames the session runs ahead of confirmed remote input")
 
     # -- request dispatch -----------------------------------------------------
 
     def _handle_requests(self, requests: List[GgrsRequest]) -> None:
-        s = self.session
-        self.ring.set_depth(self._ring_depth(s))
-        self.confirmed = s.confirmed_frame()
-        i, n = 0, len(requests)
-        while i < n:
-            load = requests[i] if isinstance(requests[i], LoadRequest) else None
-            start = j = i + 1 if load is not None else i
-            while j < n and isinstance(requests[j], (AdvanceRequest, SaveRequest)):
-                j += 1
-            run = requests[start:j]
-            if self.megastep:
-                # a load fuses into its run's dispatch when its target is
-                # still in the device ring
-                self._run_megastep(load, run)
-            elif load is not None:
-                self._service_rollback(load, run)
-            else:
-                self._run_batch(run)
-            i = j
-        # prune after processing: with coalesced ticks, an early tick's Load
-        # may target a frame below a later tick's confirmed frame
-        self.ring.confirm(self.confirmed)
-        # fire after the batch: a corrective Load/Advance in the same list
-        # must land before observers treat the frame as final
-        if self.on_confirmed is not None and self.confirmed != NULL_FRAME:
-            self.on_confirmed(self.confirmed)
-        # drafts for the live frame ride the seam after the tick's requests,
-        # once every rollback in them has been serviced (and timed)
-        self._flush_speculation()
+        with span("HandleRequests"):
+            s = self.session
+            self.ring.set_depth(self._ring_depth(s))
+            self.confirmed = s.confirmed_frame()
+            i, n = 0, len(requests)
+            while i < n:
+                load = requests[i] if isinstance(requests[i], LoadRequest) else None
+                start = j = i + 1 if load is not None else i
+                while j < n and isinstance(requests[j], (AdvanceRequest, SaveRequest)):
+                    j += 1
+                run = requests[start:j]
+                if self.megastep:
+                    # a load fuses into its run's dispatch when its target is
+                    # still in the device ring
+                    self._run_megastep(load, run)
+                elif load is not None:
+                    self._service_rollback(load, run)
+                else:
+                    self._run_batch(run)
+                i = j
+            # prune after processing: with coalesced ticks, an early tick's Load
+            # may target a frame below a later tick's confirmed frame
+            self.ring.confirm(self.confirmed)
+            # fire after the batch: a corrective Load/Advance in the same list
+            # must land before observers treat the frame as final
+            if self.on_confirmed is not None and self.confirmed != NULL_FRAME:
+                self.on_confirmed(self.confirmed)
+            # drafts for the live frame ride the seam after the tick's requests,
+            # once every rollback in them has been serviced (and timed)
+            self._flush_speculation()
 
     # -- speculation seams ----------------------------------------------------
 
@@ -690,47 +842,97 @@ class GgrsRunner:
         got = None
         if self.spec_cache is not None and adv:
             got = self.spec_cache.lookup_seq(load.frame, np.stack([a.inputs for a in adv]))
+            if _REG.enabled:
+                telemetry.count("speculation_hits_total" if got is not None
+                                else "speculation_misses_total",
+                                help="speculative branch-cache lookups")
         if got is not None:
-            self._note_rollback(load.cause)
-            # bookkeeping-only rollback: pop the ring entries above the
-            # target and keep its stored handle; the world restore is the
-            # cache select inside _run_batch
-            stored, checksum = self.ring.rollback(load.frame)
-            self.frame = load.frame
+            self._note_rollback(load.frame, load.cause)
+            with self._phases.phase("rollback_load"), span("LoadWorld"):
+                # bookkeeping-only rollback: pop the ring entries above the
+                # target and keep its stored handle; the world restore is
+                # the cache select inside _run_batch
+                stored, checksum = self.ring.rollback(load.frame)
+                self.frame = load.frame
             self._pending_speculate.append(("inv", load.frame))
             self._last_stacked = None
+            if _REG.enabled:
+                telemetry.record("speculation_hit", frame=load.frame, depth=got[0],
+                                 advances=len(adv))
             self._run_batch(run, hit=got, hit_pre=(stored, checksum))
         else:
             self._load(load.frame, load.cause)
             self._run_batch(run)
+        path = "hit" if got is not None else "miss"
         if self.measure_rollback_service:
             self._sync_for_measurement()
-            self.rollback_service_ms["hit" if got is not None else "miss"].append(
-                (time.perf_counter() - t0) * 1e3)
+            self.rollback_service_ms[path].append((time.perf_counter() - t0) * 1e3)
+        if _REG.enabled:
+            telemetry.observe(
+                "rollback_service_ms", (time.perf_counter() - t0) * 1e3,
+                "wall ms to service one rollback (LoadRequest + its following "
+                "Advance/Save run)", buckets=telemetry.LATENCY_MS_BUCKETS, path=path)
 
-    def _note_rollback(self, cause=None) -> None:
-        """Count one rollback against the handle ``cause`` blames
-        (``"unknown"`` when the session names none), so
-        :attr:`rollbacks_by_cause` sums to :attr:`rollbacks`."""
+    def _note_rollback(self, frame: int, cause=None) -> None:
+        """Rollback attribution, shared by every load path: counts one
+        rollback against the handle ``cause`` blames (``"unknown"`` when the
+        session names none), so :attr:`rollbacks_by_cause` (always on) and
+        ``rollback_cause_total{handle}`` (while telemetry is on) each sum to
+        the rollbacks; the depth, the lateness and the always-on
+        flight-recorder entry."""
+        depth = self.frame - frame
         self.rollbacks += 1
+        self._phases.note_rollback(depth)
         blamed = cause.handle if cause is not None else None
-        self.rollbacks_by_cause["unknown" if blamed is None else blamed] += 1
+        if blamed is None:
+            blamed = "unknown"
+        self.rollbacks_by_cause[blamed] += 1
+        fr = telemetry.flight_recorder()
+        if not (_REG.enabled or fr.enabled):
+            return
+        lateness = cause.lateness if cause is not None else depth
+        kind = cause.kind if cause is not None else "unknown"
+        mismatch = bool(cause.mismatch) if cause is not None else False
+        if _REG.enabled:
+            telemetry.count("rollbacks_total", help="LoadRequests executed")
+            telemetry.observe("rollback_depth", depth, "frames rolled back per LoadRequest")
+            telemetry.count("rollback_cause_total",
+                            help="rollbacks attributed to the peer whose input caused them",
+                            handle=blamed)
+            telemetry.observe("input_lateness_frames", lateness,
+                              "frames late the blamed input arrived (rollback depth "
+                              "it forced)", handle=blamed)
+            telemetry.record("rollback", to_frame=frame, from_frame=self.frame,
+                             depth=depth, handle=blamed, lateness=lateness,
+                             mismatch=mismatch, cause_kind=kind)
+        if fr.enabled:
+            # the always-on ring gets the attributed entry too, so a desync
+            # report names the blamed peer even when the registry was off
+            fr.record("rollback", to_frame=frame, from_frame=self.frame,
+                      depth=depth, handle=blamed, lateness=lateness,
+                      mismatch=mismatch, cause_kind=kind)
 
     def _load(self, frame: int, cause=None) -> None:
         """LoadGameState: restore the ring snapshot for ``frame`` (the
         rollback counted by :meth:`_note_rollback`)."""
-        self._note_rollback(cause)
-        stored, checksum = self.ring.rollback(frame)
-        if isinstance(stored, LazySlice):
-            if self.pipeline and stored._stacked is self._last_stacked:
-                # the load reads the output of the resim just dispatched:
-                # the next resim is ordered after it on the stream, with no
-                # host wait (counted, as the JAX runner counts the tick its
-                # one-deep window degrades)
-                self.pipeline_degrades += 1
-        self.world = self.app.reg.load_state(_stored_world(stored))
-        self._world_checksum = checksum
-        self.frame = frame
+        self._note_rollback(frame, cause)
+        with self._phases.phase("rollback_load"), span("LoadWorld"):
+            stored, checksum = self.ring.rollback(frame)
+            if isinstance(stored, LazySlice):
+                if self.pipeline and stored._stacked is self._last_stacked:
+                    # the load reads the output of the resim just
+                    # dispatched: the next resim is ordered after it on the
+                    # stream, with no host wait (counted, as the JAX runner
+                    # counts the tick its one-deep window degrades)
+                    self.pipeline_degrades += 1
+                    if _REG.enabled:
+                        telemetry.count(
+                            "pipeline_degrade_total",
+                            help="loads targeting the in-flight dispatch's output "
+                                 "(pipeline degraded to synchronous for that tick)")
+            self.world = self.app.reg.load_state(_stored_world(stored))
+            self._world_checksum = checksum
+            self.frame = frame
         # load_state returns a new world object, which only the runner holds
         self._world_donatable = True
         self._last_stacked = None
@@ -760,6 +962,8 @@ class GgrsRunner:
             self._stage_status = StagingBuffer(
                 lambda: np.zeros((cap, *row_st.shape), row_st.dtype), dev,
                 self._stage_inputs.stream)
+            devmem.note(self._devmem_tag + "/staging",
+                        self._stage_inputs.nbytes + self._stage_status.nbytes)
         ins = self._stage_inputs.acquire()
         sts = self._stage_status.acquire()
         san = staging.sanitizer()
@@ -787,12 +991,14 @@ class GgrsRunner:
                 cap = self._packed_cap = max(kp, self._packed_cap * 2)
                 self._packed_queue = StagingQueue(lambda: spec.new_buffer(cap),
                                                   device=self.app.device)
+                devmem.note(self._devmem_tag + "/packed_staging", self._packed_queue.nbytes)
             stage = self._packed_queue
         else:
             if self._stage_packed is None or self._packed_cap < kp:
                 cap = self._packed_cap = max(kp, self._packed_cap * 2)
                 self._stage_packed = StagingBuffer(lambda: spec.new_buffer(cap),
                                                    self.app.device)
+                devmem.note(self._devmem_tag + "/packed_staging", self._stage_packed.nbytes)
             stage = self._stage_packed
         buf = stage.acquire()
         pack_prefix(buf, start_frame, k, has_load, load_slot)
@@ -803,10 +1009,39 @@ class GgrsRunner:
         return PackedUpload(stage.commit(view), *prefix_words(view))
 
     def _note_dispatch_uploads(self, n: int, packed: Optional[PackedUpload] = None) -> None:
-        """Upload census: ``n`` host-to-device copies rode this resim."""
+        """Upload census: ``n`` host-to-device copies rode this resim
+        (always-on ints and the pre-bound families)."""
         self.host_uploads += n
+        self._m_uploads.observe(n)
         if packed is not None:
             self.packed_upload_bytes += packed.nbytes
+            self._m_packed_bytes.inc(packed.nbytes)
+
+    def _note_compile(self, variant, dt: float) -> None:
+        """Record a program variant's first-dispatch wall time: into
+        :attr:`compile_ms`, the flight recorder and (telemetry on) the
+        ``program_compile_ms`` histogram, as the JAX runner records its jit
+        variants' first calls.  Eager torch compiles nothing, so this is
+        the first call's host time (allocator growth, lazy kernel builds)."""
+        kind, depth = variant
+        self._seen_variants.add(variant)
+        ms = dt * 1e3
+        self.compile_ms[f"{kind}_k{depth}"] = round(ms, 3)
+        telemetry.flight_recorder().record("compile", owner="solo", program=kind,
+                                           k=depth, ms=round(ms, 3))
+        telemetry.observe(
+            "program_compile_ms", ms,
+            "wall ms of each program variant's first dispatch (trace+compile)",
+            buckets=telemetry.LATENCY_MS_BUCKETS, owner="solo", kind=kind)
+
+    def _note_dispatch(self, n: int, skip: int, donated: bool, stacked_bytes: int,
+                       megastep: bool = False) -> None:
+        """The dispatch families and timeline event (telemetry on only)."""
+        telemetry.gauge_set("save_bytes", stacked_bytes,
+                            "device bytes of the last dispatch's stacked save buffer")
+        fields = {"megastep": True} if megastep else {}
+        telemetry.record("dispatch", frame=self.frame, advances=n, skipped=skip,
+                         donated=donated, save_bytes=stacked_bytes, **fields)
 
     # -- one resim per run --------------------------------------------------------
 
@@ -823,6 +1058,8 @@ class GgrsRunner:
         app = self.app
         adv = [r for r in run if isinstance(r, AdvanceRequest)]
         k = len(adv)
+        ph = self._phases
+        ph.note_advances(k)
         identity = app.reg.is_identity_strategy()
         pre_world, pre_checksum = self.world, self._world_checksum
         if self.on_advance is not None:
@@ -846,6 +1083,10 @@ class GgrsRunner:
             self._world_checksum = cache_bc.ref(skip - 1)
             self.frame = frame_add(self.frame, skip)
             self.cache_served_frames += skip
+            if _REG.enabled:
+                telemetry.count("cache_served_frames_total", skip,
+                                help="rollback frames served from the speculation cache "
+                                     "instead of resimulated")
             hit_handle, hit_checksum = hit_pre
         # the state feeding the LAST advance (the next tick's hedge source),
         # as a thunk resolved at _flush_speculation.  After a full hit the
@@ -868,31 +1109,50 @@ class GgrsRunner:
             n = len(run_adv)
             self.resims += 1
             self.rollback_frames += n - 1
-            if use_branched:
-                final, stacked, checks, full_stack = self._dispatch_branched(run_adv)
-            elif self.packed:
-                depth = app.canonical_depth
-                if depth is not None and n > depth:
-                    raise ValueError(
-                        f"resim depth {n} exceeds canonical_depth {depth}; raise "
-                        "App(canonical_depth=...) above every session window"
-                    )
-                packed = self._stage_packed_rows(run_adv, self.frame, k_pad=depth)
-                fn = donated_fn if donate else app.packed_resim_fn
-                final, stacked, checks = fn(self.world, packed)
-                self._note_dispatch_uploads(1, packed)
-            else:
-                inputs, status = self._stage_rows(run_adv)
-                fn = donated_fn if donate else app.resim_fn
-                final, stacked, checks = fn(self.world, inputs, status, self.frame)
-                self._note_dispatch_uploads(2)
+            self._m_dispatches.inc()
+            self._m_resim_frames.inc(n - 1)
+            variant = ("branched" if use_branched else
+                       ("packed_" if self.packed else "") + ("donated" if donate else "plain"),
+                       n)
+            fresh = variant not in self._seen_variants
+            with span("AdvanceWorld"):
+                if use_branched:
+                    t_build = time.perf_counter() if fresh else 0.0
+                    final, stacked, checks, full_stack = self._dispatch_branched(run_adv)
+                elif self.packed:
+                    depth = app.canonical_depth
+                    if depth is not None and n > depth:
+                        raise ValueError(
+                            f"resim depth {n} exceeds canonical_depth {depth}; raise "
+                            "App(canonical_depth=...) above every session window"
+                        )
+                    with ph.phase("stage_inputs"):
+                        packed = self._stage_packed_rows(run_adv, self.frame, k_pad=depth)
+                    fn = donated_fn if donate else app.packed_resim_fn
+                    args = (self.world, packed)
+                else:
+                    with ph.phase("stage_inputs"):
+                        inputs, status = self._stage_rows(run_adv)
+                    fn = donated_fn if donate else app.resim_fn
+                    args = (self.world, inputs, status, self.frame)
+                with ph.phase("wave_dispatch"):
+                    if not use_branched:
+                        t_build = time.perf_counter() if fresh else 0.0
+                        final, stacked, checks = fn(*args)
+                        if self.packed:
+                            self._note_dispatch_uploads(1, packed)
+                        else:
+                            self._note_dispatch_uploads(2)
+                    checks = BatchChecks(checks, self.readbacks)
+                    if self.pipeline:
+                        # the checksum copy rides behind the resim; the next
+                        # update harvests it while the card runs the next one
+                        self._rbq.start(checks)
+            if fresh:
+                self._note_compile(variant, time.perf_counter() - t_build)
             if donate:
                 self.donated_dispatches += 1
-            checks = BatchChecks(checks, self.readbacks)
-            if self.pipeline:
-                # the checksum copy rides behind the resim; the next update
-                # harvests it while the card runs the next one
-                self._rbq.start(checks)
+                self._m_donated.inc()
             if self.spec_cache is not None and n >= 2:
                 last_adv_src = (lambda s=stacked, i=n - 2: slice_frame(s, i))
             self.world = final
@@ -910,34 +1170,40 @@ class GgrsRunner:
             # a guarded run's saves are cloned out, so no ring entry pins
             # this output and no load can read it
             self._last_stacked = None if materialize_saves else stacked
-        c = 0  # advances seen so far within the run
-        for r in run:
-            if isinstance(r, AdvanceRequest):
-                c += 1
-                continue
-            if c == 0:
-                if hit is not None:
-                    # a leading save after a cache-served rollback: the ring
-                    # pop handed over the target's stored form; push it back
-                    self.ring.push(r.frame, (hit_handle, hit_checksum))
-                    r.cell.save(r.frame, hit_checksum)
+            if _REG.enabled:
+                self._note_dispatch(k - skip, skip, donate, nbytes)
+        with ph.phase("store_save"), span("SaveWorld"):
+            c = 0  # advances seen so far within the run
+            for r in run:
+                if isinstance(r, AdvanceRequest):
+                    c += 1
                     continue
-                state, cs_ref = pre_world, pre_checksum
-            elif c <= skip:
-                # a cache-served frame: a view of the branch stack, cloned
-                # only where the run's own resim stack passes the guard
-                state, cs_ref = LazySlice(cache_states.stacked, c - 1), cache_bc.ref(c - 1)
-                if materialize_saves:
-                    state = state.materialize()
-                    self.materialized_saves += 1
-            else:
-                state, cs_ref = LazySlice(stacked, c - 1 - skip), checks.ref(c - 1 - skip)
-                if materialize_saves:
-                    state = state.materialize()
-                    self.materialized_saves += 1
-            stored = state if identity else app.reg.store_state(materialize(state))
-            self.ring.push(r.frame, (stored, cs_ref))
-            r.cell.save(r.frame, cs_ref)
+                if c == 0:
+                    if hit is not None:
+                        # a leading save after a cache-served rollback: the
+                        # ring pop handed over the target's stored form;
+                        # push it back
+                        self.ring.push(r.frame, (hit_handle, hit_checksum))
+                        r.cell.save(r.frame, hit_checksum)
+                        continue
+                    state, cs_ref = pre_world, pre_checksum
+                elif c <= skip:
+                    # a cache-served frame: a view of the branch stack,
+                    # cloned only where the run's own resim stack passes
+                    # the guard
+                    state, cs_ref = (LazySlice(cache_states.stacked, c - 1),
+                                     cache_bc.ref(c - 1))
+                    if materialize_saves:
+                        state = state.materialize()
+                        self.materialized_saves += 1
+                else:
+                    state, cs_ref = LazySlice(stacked, c - 1 - skip), checks.ref(c - 1 - skip)
+                    if materialize_saves:
+                        state = state.materialize()
+                        self.materialized_saves += 1
+                stored = state if identity else app.reg.store_state(materialize(state))
+                self.ring.push(r.frame, (stored, cs_ref))
+                r.cell.save(r.frame, cs_ref)
         # hedge the live frame: if its inputs were (partly) predicted, fan
         # out candidate branches for the same transition at the next seam
         # (the branched program hedged inside its own dispatch)
@@ -965,36 +1231,39 @@ class GgrsRunner:
         if self.spec_cache is not None and np.any(adv[-1].status == InputStatus.PREDICTED):
             cands = np.asarray(self.spec_cache.config.candidates_fn(adv[-1].inputs),
                                app.input_dtype)[:lanes - 1]
-        if self._stage_branched is None:
-            # pipelined: two buffers in turn, so a dispatch never waits on
-            # the previous one's upload
-            make = lambda: spec.new_batch_buffer(lanes, depth)  # noqa: E731
-            self._stage_branched = (StagingQueue(make, device=app.device) if self.pipeline
-                                    else StagingBuffer(make, app.device))
-        buf = self._stage_branched.acquire()
-        pack_prefix(buf[0], self.frame, k)
-        for i, a in enumerate(adv):
-            pack_row(spec, buf[0], i, a.inputs, a.status)
-        repeat_last_row(buf[0], k, depth)
-        buf[1:] = buf[0]
-        n_real = [k] * lanes
-        m = 0 if cands is None else cands.shape[0]
-        zero_status = np.zeros(app.num_players, np.int8)
-        for b in range(1, 1 + m):
-            pack_prefix(buf[b], self.frame, depth)
-            pack_row(spec, buf[b], k - 1, cands[b - 1], zero_status)
-            repeat_last_row(buf[b], k, depth)  # hedges hold the candidate
-            n_real[b] = depth
-        rows = self._stage_branched.commit(buf)
-        self._note_dispatch_uploads(1, PackedUpload(rows, self.frame, k))
-        inputs_b, status_b = unpack_seq(spec, rows)
-        finals, stacked, checks = app.branched_fn(self.world, inputs_b, status_b,
-                                                  self.frame, n_real)
-        if m:
-            self.spec_cache.fill_from_branched(
-                frame_add(self.frame, k - 1), cands,
-                tree_map(lambda a: a[1:1 + m], stacked), checks[1:1 + m],
-                offset=k - 1, depth_eff=depth - (k - 1))
+        ph = self._phases
+        with ph.phase("stage_inputs"):
+            if self._stage_branched is None:
+                # pipelined: two buffers in turn, so a dispatch never waits
+                # on the previous one's upload
+                make = lambda: spec.new_batch_buffer(lanes, depth)  # noqa: E731
+                self._stage_branched = (StagingQueue(make, device=app.device)
+                                        if self.pipeline else StagingBuffer(make, app.device))
+            buf = self._stage_branched.acquire()
+            pack_prefix(buf[0], self.frame, k)
+            for i, a in enumerate(adv):
+                pack_row(spec, buf[0], i, a.inputs, a.status)
+            repeat_last_row(buf[0], k, depth)
+            buf[1:] = buf[0]
+            n_real = [k] * lanes
+            m = 0 if cands is None else cands.shape[0]
+            zero_status = np.zeros(app.num_players, np.int8)
+            for b in range(1, 1 + m):
+                pack_prefix(buf[b], self.frame, depth)
+                pack_row(spec, buf[b], k - 1, cands[b - 1], zero_status)
+                repeat_last_row(buf[b], k, depth)  # hedges hold the candidate
+                n_real[b] = depth
+        with ph.phase("wave_dispatch"):
+            rows = self._stage_branched.commit(buf)
+            self._note_dispatch_uploads(1, PackedUpload(rows, self.frame, k))
+            inputs_b, status_b = unpack_seq(spec, rows)
+            finals, stacked, checks = app.branched_fn(self.world, inputs_b, status_b,
+                                                      self.frame, n_real)
+            if m:
+                self.spec_cache.fill_from_branched(
+                    frame_add(self.frame, k - 1), cands,
+                    tree_map(lambda a: a[1:1 + m], stacked), checks[1:1 + m],
+                    offset=k - 1, depth_eff=depth - (k - 1))
         return (tree_map(lambda a: a[0], finals), tree_map(lambda a: a[0, :k], stacked),
                 checks[0, :k], stacked)
 
@@ -1020,6 +1289,10 @@ class GgrsRunner:
             retention=app.retention, k_max=self._ms_k, ring_slots=self._ms_slots)
         self._ms_ring, self._ms_ring_frames = init_device_ring(self.world, self._ms_slots)
         self._dev_frames = {}
+        # the device ring is a fixed [slots, ...] stacked world plus its
+        # slot -> frame vector
+        devmem.note(self._devmem_tag + "/megastep_ring",
+                    tree_device_bytes(self._ms_ring) + tree_device_bytes(self._ms_ring_frames))
 
     def _dev_slot(self, frame: int) -> Optional[int]:
         """The device-ring slot holding ``frame``, or None when it was
@@ -1046,11 +1319,16 @@ class GgrsRunner:
                 self._load(load.frame, load.cause)
             else:
                 # bookkeeping only: the state is selected on the device
-                self._note_rollback(load.cause)
-                loaded_pair = self.ring.rollback(load.frame)
-                self._world_checksum = loaded_pair[1]
-                self.frame = load.frame
+                self._note_rollback(load.frame, load.cause)
+                with self._phases.phase("rollback_load"), span("LoadWorld"):
+                    loaded_pair = self.ring.rollback(load.frame)
+                    self._world_checksum = loaded_pair[1]
+                    self.frame = load.frame
                 self.fused_ring_loads += 1
+                if _REG.enabled:
+                    telemetry.count("fused_ring_loads_total",
+                                    help="rollback loads served from the device ring "
+                                         "inside the megastep dispatch")
                 has_load, load_slot = 1, slot
                 self._last_stacked = None
         # chunk at k_max advances: session runs always fit, replayed or
@@ -1074,6 +1352,8 @@ class GgrsRunner:
         saves, consuming a fused device-ring load when one is given."""
         adv = [r for r in run if isinstance(r, AdvanceRequest)]
         k = len(adv)
+        ph = self._phases
+        ph.note_advances(k)
         pre_world, pre_checksum = self.world, self._world_checksum
         if self.on_advance is not None:
             for i, a in enumerate(adv):
@@ -1083,14 +1363,24 @@ class GgrsRunner:
             self.resims += 1
             self.megastep_dispatches += 1
             self.rollback_frames += k - 1
-            packed = self._stage_packed_rows(adv, self.frame, k_pad=self._ms_k,
-                                             has_load=has_load, load_slot=load_slot)
-            final, self._ms_ring, self._ms_ring_frames, stacked, checks = self._ms_fn(
-                self.world, self._ms_ring, self._ms_ring_frames, packed.rows)
-            self._note_dispatch_uploads(1, packed)
-            checks = BatchChecks(checks, self.readbacks)
-            if self.pipeline:
-                self._rbq.start(checks)
+            self._m_dispatches.inc()
+            self._m_resim_frames.inc(k - 1)
+            variant = ("megastep", self._ms_k)
+            fresh = variant not in self._seen_variants
+            with span("AdvanceWorld"):
+                with ph.phase("stage_inputs"):
+                    packed = self._stage_packed_rows(adv, self.frame, k_pad=self._ms_k,
+                                                     has_load=has_load, load_slot=load_slot)
+                t_build = time.perf_counter() if fresh else 0.0
+                with ph.phase("wave_dispatch"):
+                    final, self._ms_ring, self._ms_ring_frames, stacked, checks = self._ms_fn(
+                        self.world, self._ms_ring, self._ms_ring_frames, packed.rows)
+                    self._note_dispatch_uploads(1, packed)
+                    checks = BatchChecks(checks, self.readbacks)
+                    if self.pipeline:
+                        self._rbq.start(checks)
+            if fresh:
+                self._note_compile(variant, time.perf_counter() - t_build)
             # the host mirror of the device writeback (slot -> frame).  Across
             # the i32 wrap two frames of one call can share a slot, and which
             # row the device keeps is then unspecified: such a slot is
@@ -1113,24 +1403,29 @@ class GgrsRunner:
                 nbytes = self._stacked_bytes_by_k[key] = tree_device_bytes(stacked)
             materialize_saves = nbytes > self.ring_materialize_bytes
             self._last_stacked = None if materialize_saves else stacked
-        c = 0  # advances seen so far within the run
-        for r in run:
-            if isinstance(r, AdvanceRequest):
-                c += 1
-                continue
-            if c == 0:
-                # a leading save after a fused load re-pushes the rollback's
-                # own handle: the live world was selected on the device
-                state, cs_ref = loaded_pair if loaded_pair is not None else (
-                    pre_world, pre_checksum)
-            else:
-                # identity strategies only: the stacked row is the stored form
-                state, cs_ref = LazySlice(stacked, c - 1), checks.ref(c - 1)
-                if materialize_saves:
-                    state = state.materialize()
-                    self.materialized_saves += 1
-            self.ring.push(r.frame, (state, cs_ref))
-            r.cell.save(r.frame, cs_ref)
+            if _REG.enabled:
+                self._note_dispatch(k, 0, False, nbytes, megastep=True)
+        with ph.phase("store_save"), span("SaveWorld"):
+            c = 0  # advances seen so far within the run
+            for r in run:
+                if isinstance(r, AdvanceRequest):
+                    c += 1
+                    continue
+                if c == 0:
+                    # a leading save after a fused load re-pushes the
+                    # rollback's own handle: the live world was selected on
+                    # the device
+                    state, cs_ref = loaded_pair if loaded_pair is not None else (
+                        pre_world, pre_checksum)
+                else:
+                    # identity strategies only: the stacked row is the
+                    # stored form
+                    state, cs_ref = LazySlice(stacked, c - 1), checks.ref(c - 1)
+                    if materialize_saves:
+                        state = state.materialize()
+                        self.materialized_saves += 1
+                self.ring.push(r.frame, (state, cs_ref))
+                r.cell.save(r.frame, cs_ref)
 
 
 def _stored_world(stored):

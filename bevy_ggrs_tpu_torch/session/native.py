@@ -7,8 +7,9 @@ wire-compatible, a native peer can play a Python peer.  The native core
 owns the socket, protocol, input queues, and the advance/rollback decision;
 Python only moves request buffers and checksums.
 
-A copy of ``bevy_ggrs_tpu/session/native.py`` with its telemetry calls
-dropped and its own build: at first use, ``native/ggrs_core/ggrs_core.cc``
+A copy of ``bevy_ggrs_tpu/session/native.py`` (its telemetry call, the
+``checksum_mismatch_total{kind=p2p}`` count of a core-detected desync,
+included) with its own build: at first use, ``native/ggrs_core/ggrs_core.cc``
 is compiled with the flags of ``native/Makefile`` into ``_build/`` beside
 this package (listed in ``.gitignore``); nothing is written under
 ``native/``.
@@ -25,6 +26,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..telemetry.metrics import registry
 from .events import (
     DesyncDetected,
     DesyncDetection,
@@ -419,6 +421,10 @@ class NativeP2PSession:
             elif k == _EV_RES:
                 self.events_buf.append(NetworkResumed(s))
             elif k == _EV_DESYNC:
+                reg = registry()
+                if reg.enabled:
+                    reg.counter("checksum_mismatch_total",
+                                "frames whose checksums disagreed").inc(kind="p2p")
                 self.events_buf.append(
                     DesyncDetected(
                         frame=a.value, local_checksum=int(b2.value),

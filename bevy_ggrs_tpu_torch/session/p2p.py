@@ -10,8 +10,11 @@ F invalidates states > F, so the session requests Load(F) then
 (Advance, Save) x (current - F) — which the runner serves with one resim
 call (docs/architecture.md:21 request shapes).
 
-A copy of ``bevy_ggrs_tpu/session/p2p.py`` with its telemetry calls
-dropped; the frame semantics, wire rows and timers are the reference's."""
+A copy of ``bevy_ggrs_tpu/session/p2p.py``: the frame semantics, wire
+rows, timers and telemetry records are the reference's (the ``input_send``
+timeline event a merged Chrome trace links a remote rollback to, and
+``checksum_mismatch_total{kind=p2p}``), each behind one boolean check while
+telemetry is off."""
 
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from ..telemetry.timeline import record as _record_event
+from ..telemetry.metrics import registry as _registry
 from ..utils.frames import (
     NULL_FRAME,
     frame_add,
@@ -65,6 +70,8 @@ MAX_UNACKED_FRAMES = 4096
 # (notices ride lossy transports; receipt is idempotent under the min rule)
 DISC_NOTICE_REBROADCAST_S = 1.5
 
+
+_REG = _registry()
 
 def _min_ack(endpoints):
     """Oldest last-acked frame across CONNECTED endpoints.
@@ -396,6 +403,12 @@ class P2PSession:
                 for h in self.local_handles
             )
             self._local_sent.append((eff, raw))
+            if _REG.enabled:
+                # flow-correlation anchor: a remote peer's rollback blaming
+                # (handle, frame) pairs with this send in the merged Chrome
+                # trace (telemetry/trace.py — one arrow from cause to effect)
+                _record_event("input_send", frame=eff,
+                                 handles=list(self.local_handles), size=len(raw))
             for ep in self.endpoints.values():
                 if ep.state == SessionState.RUNNING and not ep.disconnected:
                     ep.send_inputs(self._local_sent)
@@ -673,6 +686,9 @@ class P2PSession:
         for (addr, f), remote in list(self._remote_checksums.items()):
             if f == frame:
                 if remote != local:
+                    if _REG.enabled:
+                        _REG.counter("checksum_mismatch_total",
+                                     "frames whose checksums disagreed").inc(kind="p2p")
                     self.events_buf.append(
                         DesyncDetected(
                             frame=f,

@@ -31,8 +31,8 @@ in native/ggrs_core — keep in sync with message.h):
 
 A copy of ``bevy_ggrs_tpu/session/protocol.py``: the format, the timers and
 the constants are the same byte for byte, so a port peer plays a JAX peer
-or a native one.  A dropped sync message is logged, not counted (the
-telemetry registry is not ported yet).
+or a native one.  A sync message dropped for its protocol version is logged
+and counted (``handshake_version_mismatch_total{remote_version}``).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from ..telemetry.metrics import registry
 from ..utils.frames import NULL_FRAME, frame_gt
 from .events import (
     Disconnected,
@@ -225,6 +226,12 @@ class PeerEndpoint:
             ver = body[_S_SYNC_NONCE.size]
         if ver == PROTOCOL_VERSION:
             return True
+        reg = registry()
+        if reg.enabled:
+            reg.counter(
+                "handshake_version_mismatch_total",
+                "sync messages dropped for a wrong/missing protocol version",
+            ).inc(remote_version=("none" if ver is None else ver))
         logger.debug(
             "dropping sync message from %s: protocol version %s != %d",
             self.addr, ver, PROTOCOL_VERSION,

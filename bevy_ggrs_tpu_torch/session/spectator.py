@@ -6,8 +6,9 @@ bevy_ggrs src/schedule_systems.rs:200).  ``advance_frame`` raises
 PredictionThreshold while the next confirmed input has not arrived
 (the runner counts a stall and skips, :129-135).
 
-A copy of ``bevy_ggrs_tpu/session/spectator.py`` with its telemetry calls
-dropped."""
+A copy of ``bevy_ggrs_tpu/session/spectator.py``, its catch-up telemetry
+(``spectator_catchup_ticks_total`` and the ``spectator_catchup`` timeline
+event) included."""
 
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from ..telemetry.timeline import record as _record_event
+from ..telemetry.metrics import registry
 from ..utils.frames import NULL_FRAME, frame_add, frame_diff
 from .events import (
     NetworkStats,
@@ -135,6 +138,13 @@ class SpectatorSession:
         n = 1
         if self.frames_behind_host() > 2:
             n += max(self.catchup_speed, 0)
+            reg = registry()
+            if reg.enabled:
+                reg.counter("spectator_catchup_ticks_total",
+                            "spectator ticks that replayed extra frames to "
+                            "catch up").inc()
+                _record_event("spectator_catchup", frame=self.current_frame,
+                                 behind=self.frames_behind_host(), replaying=n)
         requests: List = []
         for _ in range(n):
             if self.current_frame not in self._inputs:

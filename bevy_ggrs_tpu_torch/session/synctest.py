@@ -23,6 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..telemetry.metrics import registry
 from ..utils.frames import NULL_FRAME, frame_add, frame_diff
 from .events import InputStatus, InvalidRequestError, MismatchedChecksumError
 from .requests import (
@@ -227,6 +228,11 @@ class SyncTestSession:
                 mismatched.append(frame)
         if mismatched:
             frames = sorted(mismatched)
+            reg = registry()
+            if reg.enabled:
+                reg.counter("checksum_mismatch_total",
+                            "frames whose checksums disagreed").inc(len(frames),
+                                                                    kind="synctest")
             for fr in frames:
                 del self._cells[fr]
                 self._compared_len.pop(fr, None)

@@ -19,6 +19,11 @@ interval frame once it is confirmed.
   non-blocking read that ``P2PSession._resolve_checksum`` retries each poll.
 - :class:`ReadbackStats` counts the reads of one owner (a runner): peeks
   that returned None, reads that found the copy landed, forced reads.
+  Telemetry mirrors the process's reads (as the JAX package's
+  ``_note_readback`` does): ``readback_harvested_total``,
+  ``readback_forced_total`` and ``host_blocked_seconds`` while it is on,
+  and a ``forced_readback`` flight-recorder entry per forcing read always
+  (forced reads are the pipeline's degrade signal).
 - :class:`ReadbackQueue` is the pipelined runner's side of it: ``start``
   at dispatch, ``harvest`` of every landed copy at the top of each tick,
   ``flush`` (a blocking pull of everything pending) at flush points.  The
@@ -44,6 +49,7 @@ ring entries may share its tensors.
 
 from __future__ import annotations
 
+import time
 import weakref
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -51,8 +57,33 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import flight as _flight
+from ..telemetry.metrics import registry as _registry
 from ..utils.staging import StagingQueue
 from ..utils.tree import tree_flatten, tree_map, tree_unflatten
+
+_REG = _registry()
+
+
+def _note_readback(harvested: int = 0, forced: int = 0, blocked_s: float = 0.0) -> None:
+    """Telemetry of checksum reads: the registry families while telemetry
+    is on, the flight entry of a forcing read always."""
+    if _REG.enabled:
+        if harvested:
+            _REG.counter("readback_harvested_total",
+                         "checksum readbacks collected without blocking "
+                         "(async copy had landed)").inc(harvested)
+        if forced:
+            _REG.counter("readback_forced_total",
+                         "checksum readbacks that blocked the host "
+                         "(flush points / sync mode)").inc(forced)
+        if blocked_s:
+            _REG.counter("host_blocked_seconds",
+                         "host seconds spent blocked in device->host "
+                         "checksum pulls").inc(blocked_s)
+    if forced:
+        _flight._FLIGHT.record("forced_readback", n=forced,
+                               blocked_ms=round(blocked_s * 1e3, 3))
 
 
 @dataclass
@@ -112,6 +143,8 @@ class BatchChecks:
 
     def _harvest(self) -> List[List[int]]:
         self._stats.harvested += 1
+        if _REG.enabled:
+            _note_readback(harvested=1)
         return self._adopt(self._pinned if self._event is not None else self._dev)
 
     def try_host(self) -> Optional[List[List[int]]]:
@@ -132,9 +165,14 @@ class BatchChecks:
             return self._host
         if self._landed():
             return self._harvest()
-        return self._force()
+        t0 = time.perf_counter()
+        rows = self._force()
+        _note_readback(forced=1, blocked_s=time.perf_counter() - t0)
+        return rows
 
     def _force(self) -> List[List[int]]:
+        """Wait for the rows (counted in the owner's stats; the caller
+        notes the telemetry)."""
         self._stats.forced += 1
         if self._event is None:
             return self._adopt(self._dev)
@@ -156,11 +194,15 @@ class BatchChecks:
         landed = [b._landed() for b in pending]
         for b in pending:
             b.start_async()
+        t0 = time.perf_counter()
         for b, was_landed in zip(pending, landed):
             if was_landed:
                 b._harvest()
             else:
                 b._force()
+        forced = len(pending) - sum(landed)
+        if forced:
+            _note_readback(forced=forced, blocked_s=time.perf_counter() - t0)
 
 
 class ChecksumRef:
@@ -220,6 +262,9 @@ class ReadbackQueue:
             if b._landed():
                 b._harvest()
                 n += 1
+        if _REG.enabled:
+            _REG.gauge("pipeline_depth", "checksum dispatches in flight "
+                       "(async readbacks not yet landed)").set(float(self.depth()))
         return n
 
     def depth(self) -> int:

@@ -1,7 +1,6 @@
 """Frame-indexed snapshot ring buffer.
 
-Port of ``bevy_ggrs_tpu/snapshot/ring.py`` (without its device-memory
-accounting hook), the analog of ``GgrsSnapshots`` (bevy_ggrs
+Port of ``bevy_ggrs_tpu/snapshot/ring.py``, the analog of ``GgrsSnapshots`` (bevy_ggrs
 src/snapshot/mod.rs:97-273).
 The reference keeps one ring *per registered component type*, each a pair of
 newest-first ``VecDeque``s (frames, snapshots).  Here a snapshot is the whole
@@ -19,6 +18,11 @@ arrays never leave the device).  Semantics preserved from the reference:
   reference panics at :214).
 - ``peek`` returns a stored snapshot without mutating the ring.
 
+Device-memory accounting (``telemetry/devmem.py``): a runner that calls
+:meth:`SnapshotRing.set_accounting` has every mutation re-note the ring's
+rows times one stored world's bytes under its owner (a host integer; one
+dict store per mutation).
+
 Unit-test parity: tests/test_ring.py ports the battery at mod.rs:369-512.
 """
 
@@ -27,6 +31,7 @@ from __future__ import annotations
 from collections import deque
 from typing import Deque, Generic, List, Optional, Sequence, Tuple, TypeVar
 
+from ..telemetry import devmem
 from ..utils.frames import frame_ge, frame_lt
 
 T = TypeVar("T")
@@ -43,6 +48,25 @@ class SnapshotRing(Generic[T]):
         self._frames: Deque[int] = deque()
         self._snapshots: Deque[T] = deque()
         self._depth = depth
+        # device-memory accounting: owner + per-entry byte count set by the
+        # runner; None keeps every ring op free of it
+        self._devmem_owner: Optional[str] = None
+        self._entry_bytes = 0
+
+    def set_accounting(self, owner: Optional[str], entry_bytes: int) -> None:
+        """Register this ring with the device-memory registry: every
+        mutation re-notes ``len(ring) * entry_bytes`` under ``owner``
+        (``entry_bytes`` = one stored world's bytes, computed once per
+        session by the runner; lazy-slice entries share their stacked
+        buffer, so this is the materialized figure).  ``owner=None`` turns
+        accounting back off."""
+        self._devmem_owner = owner
+        self._entry_bytes = int(entry_bytes)
+        if owner is not None:
+            self._renote()
+
+    def _renote(self) -> None:
+        devmem.note(self._devmem_owner, len(self._frames) * self._entry_bytes)
 
     # -- introspection -----------------------------------------------------
 
@@ -65,6 +89,8 @@ class SnapshotRing(Generic[T]):
         while len(self._frames) > self._depth:
             self._frames.pop()
             self._snapshots.pop()
+        if self._devmem_owner is not None:
+            self._renote()
 
     def push(self, frame: int, snapshot: T) -> None:
         """Store ``snapshot`` for ``frame``, evicting stored frames that are
@@ -77,6 +103,8 @@ class SnapshotRing(Generic[T]):
         while len(self._frames) > self._depth:
             self._frames.pop()
             self._snapshots.pop()
+        if self._devmem_owner is not None:
+            self._renote()
 
     def confirm(self, frame: int) -> None:
         """Drop snapshots strictly older than the confirmed frame
@@ -84,6 +112,8 @@ class SnapshotRing(Generic[T]):
         while self._frames and frame_lt(self._frames[-1], frame):
             self._frames.pop()
             self._snapshots.pop()
+        if self._devmem_owner is not None:
+            self._renote()
 
     def rollback(self, frame: int) -> T:
         """Discard entries newer than ``frame``; return its snapshot.
@@ -91,6 +121,8 @@ class SnapshotRing(Generic[T]):
         Raises :class:`MissingSnapshotError` if the frame is absent."""
         while self._frames:
             if self._frames[0] == frame:
+                if self._devmem_owner is not None:
+                    self._renote()
                 return self._snapshots[0]
             self._frames.popleft()
             self._snapshots.popleft()
@@ -115,6 +147,8 @@ class SnapshotRing(Generic[T]):
         """Drop every stored snapshot."""
         self._frames.clear()
         self._snapshots.clear()
+        if self._devmem_owner is not None:
+            self._renote()
 
 
 def rollback_many(

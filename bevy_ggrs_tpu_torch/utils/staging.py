@@ -34,7 +34,9 @@ upload is still in flight raises :class:`TransferRaceError` at the racing
 write.  A world handed to a donating resim is recorded with
 :meth:`TransferSanitizer.donate`; handing it to a dispatch again raises
 (:meth:`~TransferSanitizer.guard_donated`).  Disarmed (the default),
-every hook is one attribute check."""
+every hook is one attribute check.  A violation also counts on the
+``sanitizer_violations_total{rule}`` family while telemetry is on, and
+every commit notes its bytes as the ``staging/last_commit`` devmem row."""
 
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from ..telemetry import devmem
+from ..telemetry.metrics import registry
 from .device import DeviceLike, resolve_device
 
 
@@ -85,6 +89,13 @@ class TransferSanitizer:
     def _violate(self, rule, msg):
         self.violations += 1
         self.violations_by_rule[rule] = self.violations_by_rule.get(rule, 0) + 1
+        reg = registry()
+        if reg.enabled:
+            reg.counter(
+                "sanitizer_violations_total",
+                "transfer races caught by the BGT_SANITIZE runtime "
+                "sanitizer, by rule",
+            ).inc(rule=rule)
         raise TransferRaceError(msg)
 
     def begin(self, buf, note=""):
@@ -217,6 +228,8 @@ class StagingBuffer:
         """Start the upload of ``view`` (a view of :attr:`host` returned by
         the matching :meth:`acquire`) and return the device tensor; the
         compute stream is ordered after the copy, the host is not."""
+        # the upload's device copy stays resident until the dispatch reads it
+        devmem.note("staging/last_commit", view.nbytes)
         _SANITIZER.begin(view, "StagingBuffer.commit")
         self._inflight = True
         src = torch.from_numpy(view)

@@ -57,7 +57,38 @@ and no result.  The phases:
                ``pos`` offset must raise ``DesyncDetected`` within 60
                frames, and fixed_point's confirmed checksums on the card
                must equal the same pair's on the CPU;
-9. pipeline — the runner's dispatch modes on the P2P traffic of phase 8
+9. telemetry — the telemetry package: (a) phase 8's stress_soa 1M and
+               fixed_point pairs with telemetry off, then on (net stats at
+               their default, the exporter scraped on 127.0.0.1 during the
+               loop; the protocol on a clock that moves a frame per tick,
+               so both runs play the same game): the same confirmed
+               checksums, zero desyncs, one fold launch per resim, the loop
+               under ``set_sync_debug_mode("error")`` with no forced
+               readback or staging wait, kernels, copies and fills over 10
+               profiled ticks equal on and off (up to one record of each
+               kind, which the profiler can drop at a window's edge),
+               ``rollback_cause_total`` summing to ``rollbacks_total``,
+               phase totals reconciling to wall time with at most 10%
+               unattributed, the devmem ring row equal to ring frames x
+               world bytes and ``census(strict=True)``, a valid Chrome
+               trace whose two-peer merge has a cross-peer flow;
+               (b) ``forced_desync``'s box_game pair with a forensics
+               directory per peer: both write a report, each report's
+               per-component parts equal to the fold's plain version and
+               to the CPU's, the merge naming the first divergent frame
+               and ``pos``, the forensics fold held to its plain version
+               on its own k=1 stacks; (c) phase 12 (c)'s stress_soa pairs
+               as one server for 80 ticks, telemetry off and on: the same
+               confirmed checksums, the same device events per tick (as
+               in (a)), a
+               ``lobby`` label and a QoS score for every lobby, devmem rows
+               of the worlds and the rings; (d) phase 11's hedged service
+               pair with telemetry on: the speculation families equal to
+               the caches' counters; (e) host ms per peer tick of a 1M pair
+               with telemetry and the flight ring off, the flight ring
+               only, and telemetry on, in turns on five pairs (printed,
+               not gated);
+10. pipeline — the runner's dispatch modes on the P2P traffic of phase 8
                (stress_soa 1M and fixed_point pairs, 240 timed frames
                after a warm-up): the defaults (pipelined, packed single
                upload, donation) and the sync baseline (``pipeline=False,
@@ -76,7 +107,7 @@ and no result.  The phases:
                stress_soa 100k SyncTest at d=7 in both modes: zero
                mismatches, equal checksum streams, donation on the
                pipelined run;
-10. speculation — the branch axis and the speculation cache: the fold
+11. speculation — the branch axis and the speculation cache: the fold
                bit for bit on a branch-stacked stress_soa 1M x M=4 x
                depth 8 stack and a box_game [B=9, K=8] branched stack;
                one ``SpeculationCache.speculate`` at stress_soa 1M, M=4,
@@ -100,7 +131,7 @@ and no result.  The phases:
                one ``branched_fn`` call at stress_soa 10,000 x 4 players,
                B=16, K=8: lane 0 equal to the canonical resim, each hedge
                lane to the canonical resim of its inputs;
-11. batched — the many-worlds server: (a) first a full and a ragged
+12. batched — the many-worlds server: (a) first a full and a ragged
                wave of 8 lanes of a clock-reading app and of fixed_point,
                starts straddling I32_MAX, each lane from its own world:
                every lane bit-equal to the solo resim of its own frames;
@@ -128,7 +159,7 @@ and no result.  The phases:
                lanes the drafts fill): hits > 0, confirmed checksums equal
                to (c)'s, the branch caches pinning no more bytes than
                their entries hold; (c) and (d) report peak device memory;
-12. megastep — (a) SyncTest ``stress_soa`` 100k at d=7 with
+13. megastep — (a) SyncTest ``stress_soa`` 100k at d=7 with
                ``GgrsRunner(megastep=True)`` against the per-tick runner:
                equal checksum streams; (b) P2P pairs at
                ``coalesce_frames=4``, each update owing 4 frames (the P2P
@@ -146,7 +177,7 @@ and no result.  The phases:
                count is read, and on (b)'s warm-up stacks (the megastep's
                ``[k_max, N]``) before the loop, whose peak memory is read
                from the end of the warm-up;
-13. models  — particles at the reference's defaults (rate 100, ttl 120)
+14. models  — particles at the reference's defaults (rate 100, ttl 120)
                as a P2P pair (loop under sync debug "error"), its game
                recorded and replayed through ``ReplaySession``; particles
                at rate 8,000 (capacity 1,024,064) under SyncTest d=7 with
@@ -163,26 +194,27 @@ and no result.  The phases:
                plain version on the stacks of every driven run (the pair,
                both 1M SyncTests, crowd, pong, the room pair) and on the
                crowd wave's;
-14. spectator — a box_game host pair streaming to a port
+15. spectator — a box_game host pair streaming to a port
                ``SpectatorSession``: it reaches RUNNING and its checksum
                at each frame equals the host's confirmed checksum there;
-15. native  — a port ``NativeP2PSession`` peer against a port
+16. native  — a port ``NativeP2PSession`` peer against a port
                ``P2PSession`` peer, fixed_point on the card, over loopback
                UDP at input delay 0: the native peer steps first on a
                clock 10% fast, so it predicts the Python peer's flipping
                input and rolls back;
                both RUNNING, 120 frames, zero desyncs, equal confirmed
                checksums;
-16. result  — the kernels line, the card line, then
+17. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Every runner phase runs the runner's defaults unless it names a mode.
 Kernel launch counts are reset just before each driven path and read just
 after it; a path that did not launch the kernel fails.  Launches made to
 compare the kernel with its plain version are not counted.  The session
-phases (8 to 15) also hold the fold's output on the stacks their resims
-produced against the plain version, after the counts are read (phase 12's
-P2P pairs before the loop, on their warm-up's stacks).
+phases (8 to 16) also hold the fold's output on the stacks their resims
+produced against the plain version (phase 9 on the forensics pass's own
+stacks), after the counts are read (phase 13's P2P pairs before the loop,
+on their warm-up's stacks).
 """
 
 from __future__ import annotations
@@ -285,6 +317,11 @@ SIZES = {
     "crowd_lane_k": 8,
     "pong_frames": 200,  # the first goal at frame 82, the re-serve 45 frames later
     "room_frames": 120,
+    "telemetry_profile_ticks": 10,
+    "telemetry_unattributed_max_pct": 10.0,  # the JAX bench's gate (telemetry/phases.py)
+    "telemetry_server_ticks": 80,
+    "telemetry_cost_pairs": 5,
+    "telemetry_cost_frames": 40,
 }
 
 # particles.make_app(rate=8000)'s checkpoint schema digest, pinned by
@@ -1397,6 +1434,540 @@ def phase_native(dev) -> int:
     return launches
 
 
+# -- telemetry: the registry, phases, flight ring, trace, devmem, forensics ------
+
+
+def tick_events(step, ticks: int) -> dict:
+    """Kernels, copies and fills in a profiled window of ``ticks`` calls of
+    ``step`` (the window starts and ends with a device sync): the totals,
+    and per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch.device("cuda"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            step()
+        torch.cuda.synchronize()
+    counts = {"kernels": 0, "copies": 0, "fills": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) or e.key.startswith("ProfilerStep"):
+            continue
+        kind = "copies" if "Memcpy" in e.key else "fills" if "Memset" in e.key else "kernels"
+        counts[kind] += e.count
+    return {**counts, **{f"{k}_per_tick": v / ticks for k, v in counts.items()}}
+
+
+def same_events(on: dict, off: dict) -> bool:
+    """The same kernels, copies and fills in two windows of the same ticks,
+    up to one record of each kind: the profiler can drop a record at a
+    window's edge (phase ``pipeline`` sees one tick's copy go missing), and
+    a seam that added work would add it on every tick of the window."""
+    return all(abs(on[k] - off[k]) <= 1 for k in ("kernels", "copies", "fills"))
+
+
+def telemetry_mode(on: bool, flight: bool = True) -> None:
+    """Fresh registry, timeline, flight ring and devmem rows; telemetry
+    and the flight ring on or off; net stats at their default cadence."""
+    from bevy_ggrs_tpu_torch import telemetry
+
+    telemetry.reset()
+    telemetry.configure_forensics(None)
+    telemetry.configure_flight(maxlen=256, enabled=flight)
+    (telemetry.enable if on else telemetry.disable)()
+
+
+class TickClock:
+    """A virtual protocol clock (``session/protocol.now_s`` and
+    ``session/p2p.now_s``) that moves one frame per call of a network's
+    ``deliver``: the protocol's timers then fire at the same ticks however
+    long a tick takes on the host, so two runs of one pair, telemetry on
+    and off, play the same game tick for tick (on the wall clock a slower
+    tick reorders keep-alives and quality reports, and with them the
+    rollbacks)."""
+
+    def __init__(self, net):
+        from bevy_ggrs_tpu_torch.session import p2p, protocol
+
+        self._mods = (p2p, protocol)
+        self._saved = [m.now_s for m in self._mods]
+        self._net, self._deliver = net, net.deliver
+        self.t = 1000.0
+        for m in self._mods:
+            m.now_s = lambda: self.t
+
+        def deliver():
+            self.t += 1 / 60.0
+            self._deliver()
+
+        net.deliver = deliver
+
+    def close(self) -> None:
+        for m, f in zip(self._mods, self._saved):
+            m.now_s = f
+        self._net.deliver = self._deliver
+
+
+class Scraper:
+    """Scrapes ``/metrics`` and ``/qos`` of an exporter on 127.0.0.1 from a
+    thread while the main loop runs; counts the answers that parsed."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.port, self.ok, self.errors = port, {"/metrics": 0, "/qos": 0}, []
+        self.rollbacks_seen = False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        import urllib.request
+
+        while not self._stop.is_set():
+            for path in ("/metrics", "/qos"):
+                try:
+                    body = urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}",
+                                                  timeout=5).read().decode()
+                    if path == "/qos":
+                        json.loads(body)["lobby_qos_score"]
+                    elif "rollbacks_total" in body:
+                        self.rollbacks_seen = True
+                    self.ok[path] += 1
+                except Exception as e:  # noqa: BLE001 - counted, checked by the caller
+                    self.errors.append(repr(e))
+            # a scraper's pace, not a busy loop: every scrape renders the
+            # registry in Python and holds the GIL the runners tick on
+            self._stop.wait(0.25)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return {"answers": dict(self.ok), "errors": self.errors[:3],
+                "rollbacks_seen": self.rollbacks_seen}
+
+
+def peer_traces(events: list, ticks: list) -> list:
+    """Each peer's own trace, as two processes would write theirs: peer
+    ``i``'s input sends carry its handle, its rollbacks blame the other's."""
+    from bevy_ggrs_tpu_torch import telemetry
+
+    out = []
+    for i in range(2):
+        own = [e for e in events if (e["kind"] == "input_send" and e["handles"] == [i])
+               or (e["kind"] == "rollback" and e["handle"] == 1 - i)]
+        out.append(telemetry.chrome_trace(own, ticks, pid=1 + i))
+    return out
+
+
+def telemetry_pair(name: str, make_app, dev, seed: int, on: bool) -> dict:
+    """Phase 8's pair with telemetry on or off (the flight ring on at its
+    default): the loop under sync debug "error", a profiled window, and
+    with telemetry on the registry, phase, devmem, trace and exporter
+    checks; fails on any of them."""
+    from bevy_ggrs_tpu_torch import telemetry
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.telemetry import devmem
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    telemetry_mode(on)
+    net, runners, seen = channel_pair(make_app, seed)
+    clock = TickClock(net)
+    sync_sessions(runners, net)
+    exporter = telemetry.start_http_exporter(port=0, host="127.0.0.1") if on else None
+    scraper = Scraper(exporter.port) if on else None
+    frames = SIZES["p2p_frames"]
+    before = counters(runners)
+    sync(dev)
+    cf.launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        drive(runners, frames, net)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host_s = time.perf_counter() - t0
+    sync(dev)
+    launches = cf.launches
+    loop = {k: v - before[k] for k, v in counters(runners).items()}
+    served = scraper.stop() if on else None
+    if on:
+        exporter.close()
+    events = tick_events(lambda: drive(runners, 1, net), SIZES["telemetry_profile_ticks"])
+    out = {"pair": name, "telemetry": on, "frames": frames,
+           "host_ms_per_peer_tick": host_s * 1e3 / (2 * frames), "loop": loop,
+           "fold_launches": launches, "profile": events,
+           "desyncs": [len(desyncs(r)) for r in runners]}
+    fail = []
+    if launches != loop["resims"]:
+        fail.append(f"{launches} fold launches for {loop['resims']} resims")
+    if loop["forced"] or loop["staging_deferred_blocks"]:
+        fail.append("the loop waited for the card")
+    if any(out["desyncs"]) or loop["rollbacks"] == 0:
+        fail.append("a desync or no rollback")
+    if on:
+        snap = telemetry.registry().snapshot()
+        total = sum(snap["rollbacks_total"]["series"].values())
+        causes = snap["rollback_cause_total"]["series"]
+        out["rollbacks_total"], out["rollback_cause_total"] = total, causes
+        if total != sum(causes.values()) or total != sum(r.rollbacks for r in runners):
+            fail.append(f"rollback_cause_total {causes} against rollbacks_total {total}")
+        out["phases"] = [r.stats()["phases"] for r in runners]
+        for t in out["phases"]:
+            attributed = sum(t["phase_seconds"].values())
+            if abs(t["wall_seconds"] - attributed - t["unattributed_seconds"]) > 1e-4 \
+                    or t["unattributed_pct"] > SIZES["telemetry_unattributed_max_pct"]:
+                fail.append(f"phase totals: {t}")
+        gc.collect()
+        rows = devmem.snapshot()
+        out["census"] = devmem.census(strict=True)
+        out["census"].pop("owners")
+        for r in runners:
+            want = len(r.ring.frames()) * r._world_nbytes
+            got = rows.get(r._devmem_tag + "/snapshot_ring")
+            if got != want:
+                fail.append(f"devmem ring row {got} != {want}")
+        trace = telemetry.chrome_trace()
+        merged = telemetry.merge_traces(*peer_traces(telemetry.timeline().events(),
+                                                     telemetry.flight_recorder().snapshot()))
+        problems = telemetry.validate_chrome_trace(trace) + \
+            telemetry.validate_chrome_trace(merged)
+        links = telemetry.flows(merged)
+        out["trace"] = {"events": len(trace["traceEvents"]), "merged_flows": len(links),
+                        "aligned_frames": merged["metadata"]["aligned_frames"]}
+        if problems or not links:
+            fail.append(f"trace: {problems[:3]}, {len(links)} cross-peer flows")
+        out["exporter"] = served
+        if not (served["answers"]["/metrics"] and served["answers"]["/qos"]
+                and served["rollbacks_seen"]) or served["errors"]:
+            fail.append(f"exporter: {served}")
+    for r in runners:
+        r.finish()
+    clock.close()
+    out["agreed"] = agreed_checksums(seen)
+    if fail:
+        raise SystemExit(f"chip_smoke: telemetry {name} (on={on}): {'; '.join(fail)}: {out}")
+    return out
+
+
+def plain_component_checksums(reg, world) -> dict:
+    """``telemetry.forensics.component_checksums`` through the fold's plain
+    version: every part from ``checksum_fold_plain`` and torch ops."""
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.snapshot.checksum import (
+        SEEDS,
+        _resource_parts,
+        _stack1,
+        fold_inputs,
+    )
+
+    stacked = _stack1(world)
+    names = [n for n, s in reg.components.items() if s.checksum]
+    res = [n for n, s in reg.resources.items() if s.checksum]
+    rows = [cf.checksum_fold_plain(*fold_inputs(reg, stacked, names, SEEDS))[0, 1:]]
+    rows += [torch.stack([_resource_parts(reg, stacked, n, s)[0] for s in SEEDS])[None]
+             for n in res]
+    rows.append(cf.checksum_fold_plain(*fold_inputs(None, stacked, [], SEEDS))[0, :1])
+    keys = names + ["res:" + n for n in res] + ["__entities__"]
+    return {k: (int(hi) << 32) | int(lo)
+            for k, (hi, lo) in sorted(zip(keys, torch.cat(rows).cpu().tolist()))}
+
+
+def forensics_pair(dev) -> dict:
+    """Part (b): ``forced_desync``'s box_game pair with a forensics
+    directory per peer (as two processes would have), outside sync debug
+    "error": both peers write a report, each report's per-component parts
+    equal the fold's plain version on the same world and the CPU
+    computation on a copy of it, and the merge of the two reports names
+    the first divergent frame and ``pos``.  The forensics fold's stacks are
+    kept and held to the plain fold after the count is read."""
+    import tempfile
+
+    from bevy_ggrs_tpu_torch import telemetry
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.snapshot import checksum as snap_cs
+    from bevy_ggrs_tpu_torch.snapshot.lazy import wrap_single_checksum
+    from bevy_ggrs_tpu_torch.telemetry import forensics
+    from bevy_ggrs_tpu_torch.utils.tree import tree_map
+
+    telemetry_mode(True)
+    calls, stacks = [], []
+    inside = [False]
+    original = forensics.component_checksums
+    fold_mod, fold_snap = cf.checksum_fold, snap_cs.checksum_fold
+
+    def keeping_fold(fn):
+        def fold(*args):
+            if inside[0]:
+                stacks.append(args)
+            return fn(*args)
+        return fold
+
+    def timed(reg, world):
+        inside[0] = True
+        t0 = time.perf_counter()
+        try:
+            got = original(reg, world)
+        finally:
+            inside[0] = False
+        calls.append({"reg": reg, "world": world, "got": got,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        return got
+
+    dirs = [tempfile.mkdtemp(prefix=f"forensics_p{i}_") for i in range(2)]
+    forensics.component_checksums = timed
+    cf.checksum_fold = keeping_fold(fold_mod)
+    snap_cs.checksum_fold = keeping_fold(fold_snap)
+    try:
+        net, runners, _ = channel_pair(lambda: box_game.make_app(device=dev), seed=3)
+        sync_sessions(runners, net)
+
+        def step():
+            net.deliver()
+            for d, r in zip(dirs, runners):
+                telemetry.configure_forensics(d)  # each peer's own directory
+                r.update(1 / 60.0)
+
+        for _ in range(SIZES["desync_offset_frame"]):
+            step()
+        r0 = runners[0]
+        w = r0.world
+        r0.world = dataclasses.replace(w, comps={**w.comps, "pos": w.comps["pos"] + 0.5})
+        r0._world_checksum = wrap_single_checksum(r0.app.checksum_fn(r0.world))
+        start = r0.frame
+        sync(dev)
+        cf.launches = 0
+        while not all(desyncs(r) for r in runners):
+            if r0.frame - start >= SIZES["desync_window"]:
+                raise SystemExit("chip_smoke: telemetry forensics: no DesyncDetected on "
+                                 f"both peers within {SIZES['desync_window']} frames")
+            step()
+        sync(dev)
+        launches = cf.launches
+    finally:
+        forensics.component_checksums = original
+        cf.checksum_fold, snap_cs.checksum_fold = fold_mod, fold_snap
+        telemetry.configure_forensics(None)
+    reports = [sorted(Path(d).glob("desync_p2p_desync_*.json")) for d in dirs]
+    fail = []
+    if not all(reports):
+        fail.append(f"reports per peer: {[len(r) for r in reports]}")
+    for c in calls:
+        cpu_world = tree_map(lambda a: a.cpu(), c["world"])
+        if c["got"] != plain_component_checksums(c["reg"], c["world"]) \
+                or c["got"] != forensics.component_checksums(c["reg"], cpu_world):
+            fail.append("a report's component checksums differ from the plain fold's "
+                        "or the CPU's")
+    # two reports of one peer in one millisecond share a file name: every
+    # file holds one of the computed sets
+    computed = {json.dumps(c["got"]) for c in calls}
+    if any(json.dumps(json.loads(p.read_text())["component_checksums"]) not in computed
+           for ps in reports for p in ps):
+        fail.append("a report does not hold the computed component checksums")
+    merged = telemetry.merge_reports(str(reports[0][0]), str(reports[1][0])) \
+        if all(reports) else {}
+    first = merged.get("first_divergent_frame")
+    if first is None or first < start or "pos" not in (merged.get("component_diff") or []):
+        fail.append(f"merge: first divergent frame {first}, components "
+                    f"{merged.get('component_diff')}")
+    # the fold on the forensics stacks (k = 1, C components, both seeds),
+    # after the count was read: these launches are not the path's
+    for args in stacks:
+        if not torch.equal(cf.checksum_fold(*args), cf.checksum_fold_plain(*args)):
+            fail.append("checksum_fold disagrees with its plain version on a forensics stack")
+            break
+    out = {"model": "box_game", "offset_at_frame": start,
+           "first_divergent_frame": first, "component_diff": merged.get("component_diff"),
+           "reports": [len(r) for r in reports], "component_checksum_calls": len(calls),
+           "fold_launches": launches,
+           "forensics_fold_launches_per_report": len(stacks) / len(calls) if calls else None,
+           "forensics_read_ms": sorted(c["ms"] for c in calls),
+           "forensics_stacks": sorted({tuple(a[2].shape) + (len(a[0]),) for a in stacks})}
+    if fail:
+        raise SystemExit(f"chip_smoke: telemetry forensics: {'; '.join(fail)}: {out}")
+    return out
+
+
+def server_telemetry(dev, on: bool) -> dict:
+    """Part (c): phase ``batched`` (c)'s stress_soa pairs as one
+    BatchedRunner for ``telemetry_server_ticks`` ticks, telemetry on or
+    off: confirmed checksum refs, kernels per steady tick, and with
+    telemetry on the per-lobby labels, the QoS scores of every lobby and
+    the devmem rows of the worlds and the rings."""
+    from bevy_ggrs_tpu_torch import BatchedRunner, telemetry
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.telemetry import devmem
+    from bevy_ggrs_tpu_torch.utils.mem import tree_device_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    telemetry_mode(on)
+
+    def make(d):
+        return stress_soa.make_app(n_entities=SIZES["server_entities"], device=d)
+
+    nets, sessions = pair_sessions(lambda: make(dev), dev, SIZES["server_pairs"], seed=40)
+    clock = TickClock(nets[0])  # the first pair's delivery moves every pair's clock
+    br = BatchedRunner(make(dev), sessions,
+                       read_inputs=lambda b, hs: {h: pair_inputs(br.frames[b], b) for h in hs})
+    sync_all(nets, br.tick, sessions)
+    seen = [{} for _ in sessions]
+
+    def tick():
+        for net in nets:
+            net.deliver()
+        br.tick()
+        note_confirmed(br.rings, br.confirmed, seen)
+
+    sync(dev)
+    cf.launches = 0
+    for _ in range(SIZES["telemetry_server_ticks"]):
+        tick()
+    sync(dev)
+    launches = cf.launches
+    events = tick_events(tick, SIZES["telemetry_profile_ticks"])
+    clock.close()
+    m = len(sessions)
+    out = {"model": "stress_soa", "entities": SIZES["server_entities"], "lobbies": m,
+           "telemetry": on, "ticks": SIZES["telemetry_server_ticks"], "fold_launches": launches,
+           "profile": events, "rollbacks": br.rollbacks,
+           "desyncs": sum(type(e).__name__ == "DesyncDetected" for _b, e in br.events)}
+    fail = []
+    if out["desyncs"] or not br.rollbacks:
+        fail.append("a desync or no rollback")
+    if on:
+        snap = telemetry.registry().snapshot()
+        lobbies = {dict(kv.split("=") for kv in key.split(","))["lobby"]
+                   for key in snap["rollbacks_total"]["series"]}
+        qos = telemetry.qos_snapshot()["lobby_qos_score"]
+        rows = devmem.snapshot()
+        tag = br._devmem_tag
+        ring_rows = [rows.get(f"{tag}/ring{b}") for b in range(m)]
+        row_bytes = tree_device_bytes(br.worlds) // m
+        out.update(lobbies_labelled=len(lobbies), qos_lobbies=len(qos),
+                   worlds_row=rows.get(tag + "/worlds"),
+                   ring_rows=sum(x is not None for x in ring_rows))
+        if len(lobbies) != m or set(qos) != {str(b) for b in range(m)}:
+            fail.append(f"lobby labels {sorted(lobbies)}, QoS lobbies {sorted(qos)}")
+        if rows.get(tag + "/worlds") != tree_device_bytes(br.worlds) or any(
+                x != len(br.rings[b].frames()) * row_bytes for b, x in enumerate(ring_rows)):
+            fail.append("devmem rows of the worlds or the rings")
+    if fail:
+        raise SystemExit(f"chip_smoke: telemetry server (on={on}): {'; '.join(fail)}: {out}")
+    out["confirmed"] = seen
+    return out
+
+
+def telemetry_cost(dev) -> dict:
+    """Part (e), printed and not gated: host ms per peer tick of phase 8's
+    stress_soa 1M pair in three arms taken in turns on each of
+    ``telemetry_cost_pairs`` fresh pairs (the order rotated per pair):
+    telemetry and the flight ring off; the flight ring only (the default);
+    telemetry on."""
+    from bevy_ggrs_tpu_torch.models import stress_soa
+
+    arms = {"off": (False, False), "flight_only": (False, True), "on": (True, True)}
+    ms = {a: [] for a in arms}
+    n = SIZES["p2p_stress_entities"]
+    frames = SIZES["telemetry_cost_frames"]
+    order = list(arms)
+    for p in range(SIZES["telemetry_cost_pairs"]):
+        gc.collect()
+        torch.cuda.empty_cache()
+        telemetry_mode(False)
+        net, runners, _ = channel_pair(lambda: stress_soa.make_app(n_entities=n, device=dev),
+                                       seed=10 + p)
+        sync_sessions(runners, net)
+        drive(runners, 10, net)  # the first dispatch of each depth
+        for arm in order[p % 3:] + order[:p % 3]:
+            on, flight = arms[arm]
+            telemetry_mode(on, flight)
+            sync(dev)
+            t0 = time.perf_counter()
+            drive(runners, frames, net)
+            ms[arm].append((time.perf_counter() - t0) * 1e3 / (2 * frames))
+        del net, runners
+    telemetry_mode(False)
+    med = {a: statistics.median(v) for a, v in ms.items()}
+    return {"pairs": SIZES["telemetry_cost_pairs"], "frames_per_arm": frames,
+            "host_ms_per_peer_tick": ms, "median": med,
+            "spread": {a: (max(v) - min(v)) / med[a] for a, v in ms.items()},
+            "on_minus_off_ms": med["on"] - med["off"],
+            "flight_minus_off_ms": med["flight_only"] - med["off"]}
+
+
+def phase_telemetry(dev, card: str) -> int:
+    """The telemetry package on the card, parts (a) to (e) of the module
+    docstring; returns the fold launches of the driven paths (the pairs
+    with telemetry on, the forensics pair, the server with telemetry on,
+    the speculation pair)."""
+    from bevy_ggrs_tpu_torch import SpeculationConfig, pad_candidates, telemetry
+    from bevy_ggrs_tpu_torch.models import fixed_point, stress_soa
+
+    n = SIZES["p2p_stress_entities"]
+    pairs = {f"stress_soa_{n}": lambda: stress_soa.make_app(n_entities=n, device=dev),
+             "fixed_point": lambda: fixed_point.make_app(device=dev)}
+    launches = 0
+    for seed, (name, make_app) in enumerate(pairs.items()):
+        off = telemetry_pair(name, make_app, dev, seed, on=False)
+        on = telemetry_pair(name, make_app, dev, seed, on=True)
+        a, b = on.pop("agreed"), off.pop("agreed")
+        shared = sorted(set(a) & set(b))
+        if len(shared) < SIZES["p2p_frames"] // 2 or any(a[f] != b[f] for f in shared):
+            raise SystemExit(f"chip_smoke: telemetry {name}: confirmed checksums differ "
+                             f"with telemetry on and off ({len(shared)} shared frames)")
+        game = ("resims", "frames", "rollbacks")
+        if [on["loop"][k] for k in game] != [off["loop"][k] for k in game]:
+            raise SystemExit(f"chip_smoke: telemetry {name}: the runs on and off played "
+                             f"different games: {on['loop']} against {off['loop']}")
+        if not same_events(on["profile"], off["profile"]):
+            raise SystemExit(f"chip_smoke: telemetry {name}: device events per tick differ "
+                             f"on {on['profile']} and off {off['profile']}")
+        launches += on["fold_launches"]
+        emit("telemetry_pair", card=card, frames_agreed_on_off=len(shared),
+             host_ms_per_peer_tick_off=off["host_ms_per_peer_tick"], **on)
+    r = forensics_pair(dev)
+    launches += r["fold_launches"]
+    emit("telemetry_forensics", card=card, **r)
+    off, on = server_telemetry(dev, False), server_telemetry(dev, True)
+    shared = 0
+    for lobby, (x, y) in enumerate(zip(on.pop("confirmed"), off.pop("confirmed"))):
+        frames = set(x) & set(y)
+        if len(frames) < SIZES["telemetry_server_ticks"] // 2 or any(x[f]() != y[f]()
+                                                                      for f in frames):
+            raise SystemExit(f"chip_smoke: telemetry server: lobby {lobby}'s confirmed "
+                             "checksums differ with telemetry on and off")
+        shared += len(frames)
+    if not same_events(on["profile"], off["profile"]):
+        raise SystemExit(f"chip_smoke: telemetry server: device events per tick differ "
+                         f"on {on['profile']} and off {off['profile']}")
+    launches += on["fold_launches"]
+    emit("telemetry_server", card=card, frames_agreed_on_off=shared,
+         profile_off=off["profile"], **on)
+    telemetry_mode(True)
+    svc = service_pair(dev, SpeculationConfig(
+        candidates_fn=pad_candidates(2, [0, 1], [0, 1]), depth=SIZES["spec_depth"],
+        max_cached_frames=16))
+    snap = telemetry.registry().snapshot()
+    fams = {key: sum(snap.get(fam, {"series": {}})["series"].values())
+            for key, fam in (("hits", "speculation_hits_total"),
+                             ("misses", "speculation_misses_total"),
+                             ("drafts", "draft_dispatches_total"))}
+    if fams != svc["census"] or not fams["hits"]:
+        raise SystemExit(f"chip_smoke: telemetry speculation families {fams} against "
+                         f"the caches' counters {svc['census']}")
+    launches += svc["fold_launches"]
+    emit("telemetry_speculation", card=card, families=fams, caches=svc["census"],
+         hit_rate=svc["hit_rate"], fold_launches=svc["fold_launches"])
+    emit("telemetry_cost", card=card, **telemetry_cost(dev))
+    telemetry_mode(False)
+    return launches
+
+
 # -- the runner's dispatch modes ---------------------------------------------------
 
 MODES = {  # the runner's defaults (pipelined, packed, donating) and the sync baseline
@@ -1778,6 +2349,7 @@ def service_pair(dev, speculation=None) -> dict:
             "max_memory_allocated_bytes": peak,
             "desyncs": [len(desyncs(r)) for r in runners],
             "confirmed_frames_agreed": len(agreed), "path_stacks_bit_exact": stack_shapes,
+            "census": {k: after[k] for k in ("hits", "misses", "drafts")},
             "agreed": agreed}
 
 
@@ -2970,6 +3542,7 @@ def main() -> int:
     phase_parity(dev)
     phase_synctest(dev)
     by_path = {"resim": launches, "p2p": phase_p2p(dev),
+               "telemetry": phase_telemetry(dev, card),
                "pipeline": phase_pipeline(dev, card),
                **phase_speculation(dev, card), "batched": phase_batched(dev, card),
                "megastep": phase_megastep(dev, card), "models": phase_models(dev, card),

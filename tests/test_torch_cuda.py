@@ -10,7 +10,11 @@ lanes bit for bit against the plain and canonical resims on the card, the
 fold on a branch stack, and a hedged P2P pair with no host sync and no
 desync; many worlds: a packed wave's lanes bit for bit against solo
 resims, the fold on a wave stack, and the batched runner's launches per
-tick flat in the lobby count.
+tick flat in the lobby count; telemetry: a pair with telemetry on under
+sync debug "error", reconciling its phases, blame and devmem rows, the
+strict device-memory census against the allocator, and a forensics report
+on a forced desync, its per-component parts from the fold kernel equal to
+the CPU's.
 
 Marked ``cuda``; each skips without a card.  This file imports neither JAX
 nor the JAX package, so it runs on a machine without JAX:
@@ -788,3 +792,134 @@ def test_crowd_lanes_against_solo_on_card(cuda):
                 assert float((x - y).abs().max()) <= 1e-4
             else:
                 assert torch.equal(x, y)
+
+
+# -- telemetry on the card ----------------------------------------------------
+
+
+@pytest.fixture
+def telemetry_on():
+    from bevy_ggrs_tpu_torch import telemetry
+
+    telemetry.reset()
+    telemetry.enable()
+    yield telemetry
+    telemetry.disable()
+    telemetry.reset()
+    telemetry.configure_forensics(None)
+
+
+def test_telemetry_pair_makes_no_host_sync_and_reconciles(cuda, telemetry_on):
+    """Telemetry on, the default path still ticks under sync debug mode
+    "error" with no forced read and no staging wait; one fold launch per
+    resim; the blame sums to the rollbacks; the phases reconcile to wall
+    time; the ring row is ring frames times world bytes and the strict
+    census passes against the allocator."""
+    telemetry = telemetry_on
+    from bevy_ggrs_tpu_torch.telemetry import devmem
+
+    net, runners = _flipping_pair(lambda: stress_soa.make_app(n_entities=N, device=cuda),
+                                  cuda)
+    for _ in range(30):
+        net.deliver()
+        for r in runners:
+            r.update(1 / 60)
+    before = [r.stats() for r in runners]
+    cf.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(60):
+            net.deliver()
+            for r in runners:
+                r.update(1 / 60)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = [r.stats() for r in runners]
+    resims = sum(a["device_dispatches"] - b["device_dispatches"]
+                 for a, b in zip(after, before))
+    assert cf.launches == resims > 0
+    for b, a in zip(before, after):
+        assert a["readbacks"]["forced"] == b["readbacks"]["forced"]
+        assert a["staging_deferred_blocks"] == b["staging_deferred_blocks"]
+        t = a["phases"]
+        assert abs(t["wall_seconds"] - sum(t["phase_seconds"].values())
+                   - t["unattributed_seconds"]) < 1e-4
+    snap = telemetry.registry().snapshot()
+    total = sum(snap["rollbacks_total"]["series"].values())
+    assert total == sum(snap["rollback_cause_total"]["series"].values())
+    assert total == sum(r.rollbacks for r in runners) > 0
+    for r in runners:
+        assert devmem.snapshot()[r._devmem_tag + "/snapshot_ring"] == \
+            len(r.ring.frames()) * r._world_nbytes
+    c = devmem.census(strict=True)
+    assert c["live_bytes"] == torch.cuda.memory_allocated() >= c["registered_bytes"] > 0
+    for r in runners:
+        r.finish()
+    assert not [e for r in runners for e in r.events if isinstance(e, DesyncDetected)]
+
+
+def test_census_strict_flags_a_stale_row_on_card(cuda, telemetry_on):
+    from bevy_ggrs_tpu_torch.telemetry import devmem
+
+    x = torch.zeros(1 << 20, device=cuda)
+    devmem.note("test/buffer", x.numel() * x.element_size())
+    assert devmem.census(strict=True, device=cuda)["registered_bytes"] == 4 << 20
+    devmem.note("test/buffer", torch.cuda.memory_allocated(cuda) + 1)
+    with pytest.raises(RuntimeError, match="stale"):
+        devmem.census(strict=True, device=cuda)
+    del x
+
+
+def test_forensics_report_on_card_equals_plain_and_cpu(cuda, telemetry_on, tmp_path):
+    """A forced desync on the card: both peers write a report (each into
+    its own directory), each report's per-component parts come from the
+    fold kernel (two launches) and equal the CPU's computation on a copy
+    of the same world; the merge names ``pos``."""
+    import dataclasses
+    import json
+
+    from bevy_ggrs_tpu_torch.snapshot.lazy import wrap_single_checksum
+    from bevy_ggrs_tpu_torch.telemetry import forensics
+
+    telemetry = telemetry_on
+    seen = []
+    original = forensics.component_checksums
+
+    def keeping(reg, world):
+        before = cf.launches
+        got = original(reg, world)
+        seen.append((reg, world, got, cf.launches - before))
+        return got
+
+    forensics.component_checksums = keeping
+    dirs = [tmp_path / "p0", tmp_path / "p1"]
+    try:
+        net, runners = _flipping_pair(lambda: box_game.make_app(device=cuda), cuda)
+
+        def step():
+            net.deliver()
+            for d, r in zip(dirs, runners):
+                telemetry.configure_forensics(str(d))
+                r.update(1 / 60)
+
+        for _ in range(40):
+            step()
+        r0 = runners[0]
+        w = r0.world
+        r0.world = dataclasses.replace(w, comps={**w.comps, "pos": w.comps["pos"] + 0.5})
+        r0._world_checksum = wrap_single_checksum(r0.app.checksum_fn(r0.world))
+        for _ in range(60):
+            step()
+            if all(isinstance(e, DesyncDetected) for r in runners for e in r.events[-1:]):
+                break
+    finally:
+        forensics.component_checksums = original
+    reports = [sorted(d.glob("desync_p2p_desync_*.json")) for d in dirs]
+    assert all(reports)
+    assert seen and all(launches == 2 for *_x, launches in seen)
+    for reg, world, got, _n in seen:
+        assert got == original(reg, tree_map(lambda a: a.cpu(), world))
+    merged = telemetry.merge_reports(str(reports[0][0]), str(reports[1][0]))
+    assert merged["first_divergent_frame"] is not None
+    assert "pos" in merged["component_diff"]
+    assert all(json.loads(p.read_text())["component_checksums"] for ps in reports for p in ps)

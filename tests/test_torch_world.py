@@ -198,6 +198,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "events", "requests", "input_queue", "time_sync", "protocol", "transport",
         "channel", "p2p", "spectator", "builder", "native", "synctest")]
     expected += ["bevy_ggrs_tpu_torch.snapshot.lazy", "bevy_ggrs_tpu_torch.runner"]
+    # the telemetry package, each module by name (it never imports jax)
+    expected += ["bevy_ggrs_tpu_torch.telemetry", "bevy_ggrs_tpu_torch.utils.tracing"]
+    expected += [f"bevy_ggrs_tpu_torch.telemetry.{m}" for m in (
+        "metrics", "flight", "timeline", "phases", "devmem", "forensics", "netstats",
+        "qos", "prometheus", "trace")]
     # the many-worlds slice
     expected += ["bevy_ggrs_tpu_torch.batch_runner", "bevy_ggrs_tpu_torch.ops.batch",
                  "bevy_ggrs_tpu_torch.ops.variant_probe", "bevy_ggrs_tpu_torch.snapshot.strategy"]
