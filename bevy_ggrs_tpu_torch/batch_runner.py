@@ -55,8 +55,7 @@ directory is set.  No seam reads a tensor but that report.
 
 Left out: ``mesh=`` takes only ``None`` (``ShardPlanner``, its
 ``shard_imbalance_ratio`` gauge and the sharded executor wait for ROADMAP
-A6) and ``arm_compile_guard`` (A7).  The counters are plain attributes and
-:meth:`stats`.
+A6).  The counters are plain attributes and :meth:`stats`.
 """
 
 from __future__ import annotations
@@ -99,6 +98,7 @@ from .snapshot.lazy import (
 )
 from .snapshot.ring import SnapshotRing, rollback_many
 from .telemetry import devmem
+from .utils import compile_guard
 from .utils.frames import NULL_FRAME, frame_add
 from .utils.mem import tree_device_bytes, tree_storage_bytes
 from .utils.tracing import span
@@ -698,6 +698,15 @@ class BatchedRunner:
             local_checksum=ev.local_checksum, remote_checksum=ev.remote_checksum,
             addr=ev.addr, lobby=b,
             checksums={f: v for f, v in local.items() if isinstance(v, int)})
+
+    def arm_compile_guard(self) -> bool:
+        """Declare warmup over: with ``BGT_COMPILE_GUARD=1`` (or
+        :func:`~bevy_ggrs_tpu_torch.utils.compile_guard.set_compile_guard`)
+        any later wave-program first dispatch raises
+        :class:`~bevy_ggrs_tpu_torch.utils.compile_guard.RecompileError`
+        naming the owner/kind and bumps ``recompiles_steady_total{owner}``.
+        Returns True when armed; no-op (False) when the guard is off."""
+        return compile_guard.guard().arm()
 
     def stats(self) -> dict:
         """The runner's and the executor's counters: ticks, rollbacks, device

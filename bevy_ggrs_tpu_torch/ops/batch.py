@@ -46,7 +46,7 @@ import torch
 from ..snapshot.lazy import tree_index
 from ..telemetry.flight import flight_recorder
 from ..telemetry.metrics import LATENCY_MS_BUCKETS, registry
-from ..utils import staging
+from ..utils import compile_guard, staging
 from ..utils.staging import StagingQueue
 from ..utils.tree import tree_map
 from .packing import PackedWave, unpack_seq, wave_n_real, wave_starts
@@ -289,6 +289,7 @@ class BucketedWaveExecutor:
                 "program_compile_ms",
                 "wall ms of each program variant's first dispatch (trace+compile)",
                 buckets=LATENCY_MS_BUCKETS).observe(ms, owner=self._owner, kind=kind)
+        compile_guard.notify(self._owner, kind, ms)
         return out
 
     def _upload(self, name: str, host) -> torch.Tensor:

@@ -135,7 +135,7 @@ from .snapshot.lazy import (
 from .snapshot.ring import SnapshotRing
 from .snapshot.world import WorldState, active_mask
 from .telemetry import devmem
-from .utils import staging
+from .utils import compile_guard, staging
 from .utils.frames import NULL_FRAME, frame_add
 from .utils.mem import tree_device_bytes
 from .utils.staging import StagingBuffer, StagingQueue
@@ -1033,6 +1033,16 @@ class GgrsRunner:
             "program_compile_ms", ms,
             "wall ms of each program variant's first dispatch (trace+compile)",
             buckets=telemetry.LATENCY_MS_BUCKETS, owner="solo", kind=kind)
+        compile_guard.notify("solo", kind, ms)
+
+    def arm_compile_guard(self) -> bool:
+        """Declare warmup over: with ``BGT_COMPILE_GUARD=1`` (or
+        :func:`~bevy_ggrs_tpu_torch.utils.compile_guard.set_compile_guard`)
+        any later first dispatch of a program variant raises
+        :class:`~bevy_ggrs_tpu_torch.utils.compile_guard.RecompileError`
+        naming the owner/kind and bumps ``recompiles_steady_total{owner}``.
+        Returns True when armed; no-op (False) when the guard is off."""
+        return compile_guard.guard().arm()
 
     def _note_dispatch(self, n: int, skip: int, donated: bool, stacked_bytes: int,
                        megastep: bool = False) -> None:

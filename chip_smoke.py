@@ -66,7 +66,10 @@ and no result.  The phases:
                under ``set_sync_debug_mode("error")`` with no forced
                readback or staging wait, kernels, copies and fills over 10
                profiled ticks equal on and off (up to one record of each
-               kind, which the profiler can drop at a window's edge),
+               kind, which the profiler can drop at a window's edge) in
+               the first of three consecutive windows in which both runs
+               played the same game (resims, frames, rollbacks, rolled-back
+               frames and materialized saves),
                ``rollback_cause_total`` summing to ``rollbacks_total``,
                phase totals reconciling to wall time with at most 10%
                unattributed, the devmem ring row equal to ring frames x
@@ -117,7 +120,10 @@ and no result.  The phases:
                fallbacks; the JAX bench's speculation-service traffic
                (stress_soa 65,536, 6 hops, input delay 1, inputs flipping
                every 7 ticks, checksums compared every frame) on a hedged
-               and a plain port pair: zero desyncs, hits > 0, hit rate >
+               and a plain port pair, each measured window run with the
+               compile guard enabled and armed after the warm-up (zero
+               steady recompiles; a disarmed ``notify`` call's host ns
+               printed, not gated): zero desyncs, hits > 0, hit rate >
                0.5, one packed upload per draft, one fold launch per resim
                and per draft, the two pairs' confirmed checksums equal,
                the fold bit for bit on the pairs' own resim and draft
@@ -204,7 +210,45 @@ and no result.  The phases:
                input and rolls back;
                both RUNNING, 120 frames, zero desyncs, equal confirmed
                checksums;
-17. result  — the kernels line, the card line, then
+17. fleet   — (a) a ``FleetScheduler`` and two ``FleetWorker``s on the
+               card in this process over loopback UDP, ``ckpt_every_frames``
+               120: six ``stress_soa`` lobbies at 10,000 entities, one at
+               65,536 (a ~1.5 MB checkpoint, ~50 chunks of 32 KiB) and one
+               external ``box_game`` lobby fed its inputs, 600 frames each;
+               inert external fillers fill the fleet and a wire SUBMIT must
+               come back REJECT ``capacity``; at a third of the run a 10,000
+               lobby and the 65,536 lobby migrate live; at half, the worker
+               hosting the most running lobbies is closed and its lobbies
+               fail over from their last confirmed checkpoints.  The
+               workers take 8 lobbies each: with 4 the survivor would have
+               no free slot for the victim's lobbies, and the scheduler
+               strands a lobby it cannot place.  Gates: every final
+               checksum (its DONE datagram) equal to an unmigrated control
+               of its spec on the card, bit for bit; both migrations
+               ``outcome=ok`` and a failover resuming at frame > 0 in
+               ``lobby_migrations_total``; fold launches equal to chunk
+               dispatches plus checksum calls; a profiled window of one
+               lobby: one pinned host-to-device copy per chunk, none
+               pageable (the staging queue's commits exact, the trace
+               allowed to miss one chunk's copy record at the window's
+               edge, as in phase 10); ``spec_est_bytes`` equal to the world tensors'
+               bytes on the card; the fold held to its plain version on a
+               chunk's ``[16, N]`` stack and a checksum call's ``[1, N]``
+               (10,000, 65,536, box_game).  Printed: lobby-frames/s, frames/s
+               per lobby, ms per chunk, each migration's downtime, the
+               65,536 checkpoint's re-ship rounds, peak device memory.
+               (b) the JAX bench's fleet stage with the port's CLIs: two
+               ``scripts/torch_fleet_worker.py`` processes on the card
+               (capacity 3, paced at 240 frames/s), 3 ``stress_soa`` lobbies
+               of 256 entities to 1,500 frames (the last to 6,000), a live
+               migration, a SIGSTOP that fires exactly one
+               ``heartbeat_liveness`` alert and resolves after SIGCONT,
+               ``/fleet``, ``/qos`` and ``/metrics`` with ``worker=`` labels,
+               a SIGKILL failover resuming at frame > 0, an overflow REJECT,
+               a valid three-participant merged trace with a cross-pid
+               ``migration`` flow, every final checksum equal to an
+               in-process control on the card;
+18. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Every runner phase runs the runner's defaults unless it names a mode.
@@ -318,10 +362,21 @@ SIZES = {
     "pong_frames": 200,  # the first goal at frame 82, the re-serve 45 frames later
     "room_frames": 120,
     "telemetry_profile_ticks": 10,
+    "telemetry_profile_windows": 3,
     "telemetry_unattributed_max_pct": 10.0,  # the JAX bench's gate (telemetry/phases.py)
     "telemetry_server_ticks": 80,
     "telemetry_cost_pairs": 5,
     "telemetry_cost_frames": 40,
+    "fleet_small_lobbies": 6,  # at server_entities; one more at svc_entities
+    "fleet_frames": 600,
+    "fleet_capacity": 8,  # per worker; see phase 17 (a)
+    "fleet_ckpt_every": 120,
+    "fleet_profile_chunks": 8,
+    "fleet_cli_frames": 1500,  # bench.py FLEET_TARGET, FLEET_ENTITIES,
+    "fleet_cli_entities": 256,  # FLEET_LOBBIES and FLEET_CAPACITY
+    "fleet_cli_lobbies": 3,
+    "fleet_cli_capacity": 3,
+    "fleet_cli_wait_s": 180,
 }
 
 # particles.make_app(rate=8000)'s checkpoint schema digest, pinned by
@@ -1437,17 +1492,38 @@ def phase_native(dev) -> int:
 # -- telemetry: the registry, phases, flight ring, trace, devmem, forensics ------
 
 
+def warm_profile(step, calls: int):
+    """A ``torch.profiler`` trace of ``calls`` calls of ``step`` behind one
+    traced and discarded warm-up call (the schedule's ``warmup``), each end
+    of the counted calls at a device sync; returns the profiler and the
+    counted calls' wall ms.  A trace that starts with the counted calls
+    loses records at its start: on the H100
+    (``scripts/torch_profile_windows.py``), twenty plain windows of the
+    same 10 lobby chunks read 8,171 to 8,180 kernels and 9 or 10 uploads;
+    19 of twenty behind a warm-up call read all 8,180 and 10."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            step()
+            if i == calls - 1:
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    return prof, wall_ms
+
+
 def tick_events(step, ticks: int) -> dict:
     """Kernels, copies and fills in a profiled window of ``ticks`` calls of
-    ``step`` (the window starts and ends with a device sync): the totals,
+    ``step`` (behind a warm-up call, :func:`warm_profile`): the totals,
     and per call."""
-    from torch.profiler import ProfilerActivity, profile
-
     sync(torch.device("cuda"))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(ticks):
-            step()
-        torch.cuda.synchronize()
+    prof, _ = warm_profile(step, ticks)
     counts = {"kernels": 0, "copies": 0, "fills": 0}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA \
@@ -1595,10 +1671,19 @@ def telemetry_pair(name: str, make_app, dev, seed: int, on: bool) -> dict:
     served = scraper.stop() if on else None
     if on:
         exporter.close()
-    events = tick_events(lambda: drive(runners, 1, net), SIZES["telemetry_profile_ticks"])
+    # consecutive profiled windows, each with the game it played: two runs
+    # of one pair have placed a window's rollback a tick apart on the card
+    # though their loops matched (cause not found)
+    windows = []
+    for _ in range(SIZES["telemetry_profile_windows"]):
+        start = counters(runners)
+        events = tick_events(lambda: drive(runners, 1, net), SIZES["telemetry_profile_ticks"])
+        end = counters(runners)
+        windows.append({"events": events, "game": {k: end[k] - start[k] for k in WINDOW_GAME}})
     out = {"pair": name, "telemetry": on, "frames": frames,
            "host_ms_per_peer_tick": host_s * 1e3 / (2 * frames), "loop": loop,
-           "fold_launches": launches, "profile": events,
+           "fold_launches": launches, "profile": windows[0]["events"],
+           "profile_windows": windows,
            "desyncs": [len(desyncs(r)) for r in runners]}
     fail = []
     if launches != loop["resims"]:
@@ -1924,9 +2009,14 @@ def phase_telemetry(dev, card: str) -> int:
         if [on["loop"][k] for k in game] != [off["loop"][k] for k in game]:
             raise SystemExit(f"chip_smoke: telemetry {name}: the runs on and off played "
                              f"different games: {on['loop']} against {off['loop']}")
-        if not same_events(on["profile"], off["profile"]):
-            raise SystemExit(f"chip_smoke: telemetry {name}: device events per tick differ "
-                             f"on {on['profile']} and off {off['profile']}")
+        # the first window in which both runs played the same game must
+        # show the same device events
+        won, woff = on.pop("profile_windows"), off.pop("profile_windows")
+        same = [(x, y) for x, y in zip(won, woff) if x["game"] == y["game"]]
+        if not same or not same_events(same[0][0]["events"], same[0][1]["events"]):
+            raise SystemExit(f"chip_smoke: telemetry {name}: no window of the same game, or "
+                             f"its device events differ: on {won}, off {woff}")
+        on["profile"], on["profile_game"] = same[0][0]["events"], same[0][0]["game"]
         launches += on["fold_launches"]
         emit("telemetry_pair", card=card, frames_agreed_on_off=len(shared),
              host_ms_per_peer_tick_off=off["host_ms_per_peer_tick"], **on)
@@ -1976,13 +2066,19 @@ MODES = {  # the runner's defaults (pipelined, packed, donating) and the sync ba
 }
 
 
+# the counters that say which game a profiled window played
+WINDOW_GAME = ("resims", "frames", "rollbacks", "rollback_frames", "materialized_saves")
+
+
 def counters(runners) -> dict:
     """The runners' counters summed over the pair."""
-    out = {"resims": 0, "frames": 0, "forced": 0, "peek_misses": 0, "harvested": 0}
+    out = {"resims": 0, "frames": 0, "rollback_frames": 0, "forced": 0, "peek_misses": 0,
+           "harvested": 0}
     for r in runners:
         st = r.stats()
         out["resims"] += r.resims
         out["frames"] += r.frame
+        out["rollback_frames"] += r.rollback_frames
         for key in ("forced", "peek_misses", "harvested"):
             out[key] += st["readbacks"][key]
         for key in ("pipeline_degrades", "materialized_saves", "donated_dispatches",
@@ -1993,20 +2089,10 @@ def counters(runners) -> dict:
     return out
 
 
-def profile_ticks(runners, net, ticks: int, step: int = 1) -> dict:
-    """A profiler trace of ``ticks`` pair ticks: host-to-device copies per
-    resim (pinned and pageable), device-to-host copies and kernel launches
-    per peer tick, device busy time (kernels, copies and fills) and the
-    idle share; a busy time beyond the window's wall time fails."""
-    from torch.profiler import ProfilerActivity, profile
-
-    resims0 = sum(r.resims for r in runners)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        drive(runners, ticks, net, step)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    resims = sum(r.resims for r in runners) - resims0
+def copy_counts(prof):
+    """A profiler trace's host-to-device copies (pinned, pageable),
+    device-to-host copies and kernel launches, and its device busy µs
+    (kernels, copies and fills)."""
     counts = {"htod": 0, "htod_pinned": 0, "htod_pageable": 0, "dtoh": 0, "launches": 0}
     busy_us = 0.0
     for e in prof.key_averages():
@@ -2027,6 +2113,24 @@ def profile_ticks(runners, net, ticks: int, step: int = 1) -> dict:
             counts["dtoh"] += e.count
         elif "Memcpy" not in e.key and "Memset" not in e.key:
             counts["launches"] += e.count
+    return counts, busy_us
+
+
+def profile_ticks(runners, net, ticks: int, step: int = 1) -> dict:
+    """A profiler trace of ``ticks`` pair ticks: host-to-device copies per
+    resim (pinned and pageable), device-to-host copies and kernel launches
+    per peer tick, device busy time (kernels, copies and fills) and the
+    idle share; a busy time beyond the window's wall time fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    resims0 = sum(r.resims for r in runners)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive(runners, ticks, net, step)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    resims = sum(r.resims for r in runners) - resims0
+    counts, busy_us = copy_counts(prof)
     peer_ticks = 2 * ticks
     if not 0 < busy_us / 1e3 <= wall_ms:
         # the copy stream overlaps the compute stream by microseconds at
@@ -2277,6 +2381,7 @@ def service_pair(dev, speculation=None) -> dict:
     from bevy_ggrs_tpu_torch.models import stress_soa
     from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
     from bevy_ggrs_tpu_torch.session.channel import ChannelNetwork
+    from bevy_ggrs_tpu_torch.utils import compile_guard
 
     cuda = dev.type == "cuda"
     if cuda:
@@ -2322,10 +2427,19 @@ def service_pair(dev, speculation=None) -> dict:
     before = census()
     sync(dev)
     cf.launches = 0
-    t0 = time.perf_counter()
-    drive(runners, SIZES["svc_ticks"], net)
-    sync(dev)
-    dt = time.perf_counter() - t0
+    # the warm-up ran every program variant this traffic reaches: the
+    # measured window runs with the compile guard armed (bench.py's
+    # speculation-service arm), so a new variant raises RecompileError
+    guard = compile_guard.set_compile_guard(True)
+    runners[0].arm_compile_guard()
+    try:
+        t0 = time.perf_counter()
+        drive(runners, SIZES["svc_ticks"], net)
+        sync(dev)
+        dt = time.perf_counter() - t0
+    finally:
+        guard.disarm()
+        compile_guard.set_compile_guard(False)
     launches = cf.launches
     after = census()
     loop = {k: after[k] - before[k] for k in after if k != "service"}
@@ -2347,6 +2461,7 @@ def service_pair(dev, speculation=None) -> dict:
             "hit_rate": loop["hits"] / lookups if lookups else None,
             "rollback_service_ms": service, "cache_served_frames": loop["served"],
             "max_memory_allocated_bytes": peak,
+            "steady_recompiles": len(guard.steady_compiles),
             "desyncs": [len(desyncs(r)) for r in runners],
             "confirmed_frames_agreed": len(agreed), "path_stacks_bit_exact": stack_shapes,
             "census": {k: after[k] for k in ("hits", "misses", "drafts")},
@@ -2482,6 +2597,20 @@ def branched_call(dev) -> dict:
     return result
 
 
+def disarmed_notify_ns(calls: int = 1_000_000) -> float:
+    """Host ns per ``compile_guard.notify`` call with the guard disarmed
+    (the cost every first dispatch pays when the guard is off); printed,
+    not gated."""
+    from bevy_ggrs_tpu_torch.utils import compile_guard
+
+    compile_guard.set_compile_guard(False)
+    notify = compile_guard.notify
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        notify("solo", "plain", 0.0)
+    return (time.perf_counter() - t0) * 1e9 / calls
+
+
 def phase_speculation(dev, card: str) -> dict:
     """The branch axis and the cache (see the module docstring); returns
     the fold launches of the hedged service loop and of the hedged
@@ -2515,8 +2644,10 @@ def phase_speculation(dev, card: str) -> dict:
     if fail:
         raise SystemExit(f"chip_smoke: speculation service: {'; '.join(fail)}: "
                          f"{[hedged, plain]}")
+    guard_ns = disarmed_notify_ns()
     for r in (plain, hedged):
-        emit("speculation_service", card=card, pairs_agree_at_frames=len(shared), **r)
+        emit("speculation_service", card=card, pairs_agree_at_frames=len(shared),
+             disarmed_notify_ns=guard_ns, **r)
     pairs = {hedge: branched_pair(dev, hedge) for hedge in (False, True)}
     a, b = pairs[True].pop("agreed"), pairs[False].pop("agreed")
     shared = sorted(set(a) & set(b))
@@ -3529,6 +3660,551 @@ def phase_models(dev, card: str) -> int:
     return launches
 
 
+# -- the fleet: scheduler, workers, lobby sims, migration and failover -----------
+
+
+class LobbyCounts:
+    """Counts, while entered, every ``LobbySim`` chunk dispatch (a
+    ``step`` that advanced frames), its frames and host ms by lobby kind
+    (a ``stress_soa`` lobby's entity count, or the app), and every
+    ``checksum`` call: the fold launches the fleet's
+    lobbies make.  Patches the class, so lobbies the workers build count."""
+
+    def __enter__(self):
+        from bevy_ggrs_tpu_torch.fleet import lobby
+
+        cls, counts = lobby.LobbySim, self
+        self._cls, self._step, self._checksum = cls, cls.step, cls.checksum
+        self.chunks = self.frames = self.checksums = 0
+        self.ms_by_entities = {}
+
+        def step(sim, max_frames=lobby.LOBBY_CHUNK):
+            t0 = time.perf_counter()
+            k = counts._step(sim, max_frames)
+            if k:
+                counts.chunks += 1
+                counts.frames += k
+                key = sim.spec.entities if sim.spec.app == "stress_soa" else sim.spec.app
+                row = counts.ms_by_entities.setdefault(key, [0, 0.0])
+                row[0] += 1
+                row[1] += (time.perf_counter() - t0) * 1e3
+            return k
+
+        def checksum(sim):
+            counts.checksums += 1
+            return counts._checksum(sim)
+
+        cls.step, cls.checksum = step, checksum
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.step, self._cls.checksum = self._step, self._checksum
+
+
+def fleet_pump(sched, workers, cond, timeout_s: float, what: str, each=None) -> None:
+    """Poll the scheduler and ``workers`` until ``cond()``; ``each()`` runs
+    after every round; raises on the timeout."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        sched.poll()
+        for w in workers:
+            w.poll()
+        if each is not None:
+            each()
+        if cond():
+            return
+        time.sleep(0.001)
+    raise SystemExit(f"chip_smoke: fleet: timed out waiting for {what}: "
+                     f"{sched.snapshot()['lobbies']}")
+
+
+def fleet_overflow(sched, workers, spec) -> str:
+    """SUBMIT ``spec`` over the wire from a ``FleetClient`` while the fleet
+    is pumped; the REJECT reason (or the placing worker's id)."""
+    import threading
+
+    from bevy_ggrs_tpu_torch.fleet import FleetClient
+
+    cli = FleetClient(sched.local_addr)
+    verdict = {}
+
+    def ask():
+        verdict["worker"] = cli.submit(spec, timeout_s=30)
+        verdict["reason"] = cli.last_reject
+
+    t = threading.Thread(target=ask)
+    t.start()
+    while t.is_alive():
+        sched.poll()
+        for w in workers:
+            w.poll()
+        time.sleep(0.002)
+    t.join()
+    cli.close()
+    return verdict["reason"] if verdict["worker"] is None else f"placed:{verdict['worker']}"
+
+
+def fleet_controls(specs, dev, ext_rows=None) -> dict:
+    """Each spec's final checksum (hex) from an unmigrated in-process lobby
+    on ``dev``; an external lobby gets ``ext_rows`` as its inputs."""
+    from bevy_ggrs_tpu_torch.fleet import LobbySim, checksum_hex
+
+    out = {}
+    for spec in specs:
+        sim = LobbySim(spec, device=dev)
+        if spec.input_mode == "external":
+            for f, row in enumerate(ext_rows, start=1):
+                sim.submit_input(f, row)
+        sim.run_to(spec.target_frames)
+        if sim.frame != spec.target_frames:
+            raise SystemExit(f"chip_smoke: fleet control {spec.lobby_id} stopped at "
+                             f"{sim.frame}")
+        out[spec.lobby_id] = checksum_hex(sim.checksum())
+    return out
+
+
+def fleet_chunk_checks(specs, dev) -> list:
+    """The fold held to its plain version on a lobby chunk's own stack
+    (``[LOBBY_CHUNK, N]``) and on the ``[1, N]`` stack of its checksum
+    call, one lobby per spec, outside any counted window; and
+    ``spec_est_bytes`` equal to the lobby's world tensors' bytes there."""
+    from bevy_ggrs_tpu_torch.fleet import LobbySim, spec_est_bytes
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.utils.tree import tree_map
+
+    rows = []
+    for spec in specs:
+        sim = LobbySim(spec, device=dev)
+        est, want = sim.est_bytes(), spec_est_bytes(spec)
+        if est != want:
+            raise SystemExit(f"chip_smoke: fleet: {spec.lobby_id} world holds {est} B on "
+                             f"the card, spec_est_bytes says {want}")
+        fn, kept = sim.app.packed_resim_fn, []
+
+        def keeping(state, packed, fn=fn, kept=kept):
+            out = fn(state, packed)
+            kept.append(out[1])
+            return out
+
+        sim.app.__dict__["packed_resim_fn"] = keeping
+        if spec.input_mode == "external":
+            for f in range(1, 6):
+                sim.submit_input(f, np.zeros((sim.app.num_players,), sim.app.input_dtype))
+        sim.step()
+        stacks = [kept[0], tree_map(lambda a: a[None], sim.world)]
+        for stacked in stacks:
+            args = fold_inputs(sim.app.reg, stacked)
+            if dev.type == "cuda" and not torch.equal(cf.checksum_fold(*args),
+                                                      cf.checksum_fold_plain(*args)):
+                raise SystemExit(f"chip_smoke: fleet: the fold differs from its plain "
+                                 f"version on {spec.lobby_id}'s stack "
+                                 f"{list(stacked.alive.shape)}")
+            rows.append({"lobby": spec.app, "entities": spec.entities,
+                         "stack": list(stacked.alive.shape), "est_bytes": est})
+    return rows
+
+
+def fleet_chunk_profile(spec, dev, chunks: int) -> dict:
+    """One lobby's chunks under the profiler (:func:`warm_profile`): the
+    staging queue's commits (the host's census of uploads), host-to-device
+    copies per chunk (pinned and pageable), device events and device ms
+    per chunk, host ms per chunk."""
+    from bevy_ggrs_tpu_torch.fleet import LobbySim
+
+    sim = LobbySim(spec, device=dev)
+    sim.step()
+    sim.step()
+    commit, commits = sim._stage.commit, [0]
+
+    def counting(view):
+        commits[0] += 1
+        return commit(view)
+
+    sim._stage.commit = counting
+    prof, wall_ms = warm_profile(sim.step, chunks)
+    commits[0] -= 1  # the warm-up chunk's
+    counts, busy_us = copy_counts(prof)
+    return {"chunks": chunks, "entities": spec.entities, "commits": commits[0], **counts,
+            "pinned_htod_per_chunk": counts["htod_pinned"] / chunks,
+            "launches_per_chunk": counts["launches"] / chunks,
+            "host_ms_per_chunk": wall_ms / chunks,
+            "device_busy_ms_per_chunk": busy_us / 1e3 / chunks,
+            "idle_share": 1 - busy_us / 1e3 / wall_ms}
+
+
+def fleet_in_process(dev, card: str) -> int:
+    """(a) The fleet in one process on the card (module docstring, phase
+    17); returns the fold launches its lobbies made."""
+    from bevy_ggrs_tpu_torch import telemetry
+    from bevy_ggrs_tpu_torch.fleet import (FleetScheduler, FleetWorker, LobbySpec,
+                                           spec_est_bytes)
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    target = SIZES["fleet_frames"]
+    specs = [LobbySpec(lobby_id=f"s{i}", entities=SIZES["server_entities"], seed=i,
+                       target_frames=target) for i in range(SIZES["fleet_small_lobbies"])]
+    big = LobbySpec(lobby_id="big", entities=SIZES["svc_entities"], seed=11,
+                    target_frames=target)
+    ext = LobbySpec(lobby_id="ext", app="box_game", players=2, seed=12,
+                    target_frames=target, input_mode="external")
+    specs += [big, ext]
+    ext_rows = np.random.default_rng(12).integers(0, 16, (target, 2)).astype(np.uint8)
+    checks = fleet_chunk_checks([specs[0], big, ext], dev)
+    prof = (fleet_chunk_profile(specs[0], dev, SIZES["fleet_profile_chunks"])
+            if dev.type == "cuda" else None)
+    # the commits are the exact census; the trace must agree, but may miss
+    # one chunk's copy record, as in phase pipeline (1 window in 20 behind
+    # a warm-up call on the H100)
+    if prof is not None and (prof["commits"] != prof["chunks"] or prof["htod_pageable"]
+                             or prof["htod"] != prof["htod_pinned"]
+                             or not prof["chunks"] - 1 <= prof["htod_pinned"] <= prof["chunks"]):
+        raise SystemExit(f"chip_smoke: fleet: not one pinned upload per chunk: {prof}")
+
+    telemetry.reset()
+    telemetry.enable()
+    sched = FleetScheduler(worker_timeout_s=8.0)
+    cap = SIZES["fleet_capacity"]
+    workers = [FleetWorker(f"w{i}", sched.local_addr, capacity=cap,
+                           ckpt_every_frames=SIZES["fleet_ckpt_every"], device=dev)
+               for i in range(2)]
+    live = list(workers)
+    rounds = {}  # (lobby, frame) -> re-ship rounds seen at a worker
+
+    def sample():
+        for w in live:
+            for lid, h in w.lobbies.items():
+                if h.shipment is not None:
+                    key = (lid, h.shipment.frame)
+                    rounds[key] = max(rounds.get(key, 0), h.shipment.rounds)
+
+    try:
+        for w in workers:
+            w.register()
+        fleet_pump(sched, live, lambda: len(sched.workers) == 2, 60, "2 workers")
+        if dev.type == "cuda":
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        cf.launches = 0
+        with LobbyCounts() as counts:
+            t0 = time.perf_counter()
+            for spec in specs:
+                ok, who = sched.submit(spec)
+                if not ok:
+                    raise SystemExit(f"chip_smoke: fleet: {spec.lobby_id} rejected ({who})")
+            recs = {s.lobby_id: sched.lobbies[s.lobby_id] for s in specs}
+            fleet_pump(sched, live, lambda: all(r.state in ("running", "done")
+                                                for r in recs.values()),
+                       120, "all lobbies placed")
+            host = next(w for w in live if "ext" in w.lobbies)
+            for f, row in enumerate(ext_rows, start=1):
+                host.lobbies["ext"].sim.submit_input(f, row)
+            # fill the free slots with inert external lobbies, then a SUBMIT
+            # over the wire must come back REJECT(capacity)
+            fillers = [f"fill{i}" for i in range(2 * cap - len(specs))]
+            for fid in fillers:
+                ok, who = sched.submit(LobbySpec(lobby_id=fid, entities=16,
+                                                 target_frames=1_000_000,
+                                                 input_mode="external"))
+                if not ok:
+                    raise SystemExit(f"chip_smoke: fleet: filler {fid} rejected ({who})")
+            reject = fleet_overflow(sched, live, LobbySpec(lobby_id="overflow", entities=16))
+            for fid in fillers:
+                sched.drop(fid)
+            movers = [specs[0].lobby_id, big.lobby_id]
+            fleet_pump(sched, live, lambda: min(recs[m].frame for m in movers) >= target // 3,
+                       300, "a third of the run", sample)
+            srcs = {m: recs[m].worker_id for m in movers}
+            for m in movers:
+                if not sched.migrate(m):
+                    raise SystemExit(f"chip_smoke: fleet: migrate({m}) found no destination")
+            resume_rounds = {}
+
+            def migrated():
+                sample()
+                for m in movers:
+                    if recs[m].state == "running" and recs[m].worker_id != srcs[m]:
+                        resume_rounds.setdefault(m, recs[m].resume_rounds)
+                return len(resume_rounds) == len(movers)
+
+            fleet_pump(sched, live, migrated, 300, "both migrations")
+            # close the worker hosting the most running lobbies, once each of
+            # them has a confirmed checkpoint past frame 0 at the scheduler
+            victim = max(live, key=lambda w: sum(r.worker_id == w.worker_id
+                                                 and r.state == "running"
+                                                 for r in recs.values()))
+            mine = [r for r in recs.values()
+                    if r.worker_id == victim.worker_id and r.state == "running"]
+            fleet_pump(sched, live, lambda: max(r.frame for r in recs.values()) >= target // 2
+                       and all(r.ckpt_frame > 0 and r.ckpt_blob is not None for r in mine),
+                       300, "confirmed checkpoints on the victim", sample)
+            killed_at = {r.lobby_id: r.frame for r in mine if r.state == "running"}
+            if not killed_at:
+                raise SystemExit("chip_smoke: fleet: the victim's lobbies finished before "
+                                 "the kill")
+            sched.worker_timeout_s = 2.0
+            victim.close()
+            live.remove(victim)
+            fleet_pump(sched, live, lambda: all(r.state == "done" for r in recs.values()),
+                       600, "every lobby to finish", sample)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = cf.launches
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    finally:
+        for w in workers:
+            w.close()
+        sched.close()
+        telemetry.disable()
+    want = fleet_controls(specs, dev, ext_rows)
+    got = {lid: r.final_checksum for lid, r in recs.items()}
+    events = sched.events
+    mig = [e for e in events if e["event"] == "migrate_ok"]
+    fo = [e for e in events if e["event"] == "failover"]
+    series = telemetry.summary()["metrics"]["lobby_migrations_total"]["series"]
+    telemetry.reset()
+    fail = []
+    if got != want:
+        fail.append(f"final checksums differ from the controls: {got} != {want}")
+    if reject != "capacity":
+        fail.append(f"overflow verdict {reject!r}, not a 'capacity' REJECT")
+    if series.get("outcome=ok", 0) < 1 or len(mig) != len(movers):
+        fail.append(f"migrations: {series}, {mig}")
+    if series.get("outcome=failover", 0) < 1 or not fo or any(e["frame"] <= 0 for e in fo):
+        fail.append(f"failovers: {series}, {fo}")
+    if dev.type == "cuda" and launches != counts.chunks + counts.checksums:
+        fail.append(f"{launches} fold launches for {counts.chunks} chunks and "
+                    f"{counts.checksums} checksum calls")
+    if fail:
+        raise SystemExit(f"chip_smoke: fleet (a): {'; '.join(fail)}")
+    big_rounds = {f"{lid}@{frame}": n for (lid, frame), n in sorted(rounds.items())
+                  if lid == big.lobby_id}
+    rmem = Path("/proc/sys/net/core/rmem_max")
+    emit("fleet_in_process", card=card, lobbies=len(specs), capacity=cap,
+         entities={s.lobby_id: s.entities if s.app == "stress_soa" else s.app
+                   for s in specs}, target_frames=target,
+         seconds=seconds, lobby_frames=counts.frames,
+         lobby_frames_per_s=counts.frames / seconds,
+         frames_per_s_per_lobby=counts.frames / seconds / len(specs),
+         chunks=counts.chunks, checksum_calls=counts.checksums, fold_launches=launches,
+         ms_per_chunk={str(n): ms / c for n, (c, ms) in counts.ms_by_entities.items()},
+         migrations=[{k: e[k] for k in ("lobby", "src", "dst", "frame", "downtime_ms")}
+                     for e in mig],
+         failovers=[{k: e[k] for k in ("lobby", "src", "dst", "frame")} for e in fo],
+         killed_at_frames=killed_at, migration_series=series, overflow_reject=reject,
+         ckpt_bytes={s.lobby_id: len(sched.lobbies[s.lobby_id].ckpt_blob or b"")
+                     for s in (specs[0], big)},
+         big_worker_reship_rounds=big_rounds, big_resume_rounds=resume_rounds.get("big"),
+         resume_rounds=resume_rounds,
+         rmem_max=int(rmem.read_text()) if rmem.exists() else None,
+         max_memory_allocated_bytes=peak, est_bytes={s.lobby_id: spec_est_bytes(s)
+                                                    for s in (specs[0], big, ext)},
+         chunk_profile=prof, chunk_stacks_bit_exact=checks,
+         final_checksums_equal_controls=len(want),
+         events=sorted({e["event"] for e in events}))
+    return launches
+
+
+
+def fleet_subprocesses(dev, card: str) -> None:
+    """(b) The JAX bench's fleet stage (``bench.py`` ``stage_fleet``) with
+    the port's CLIs: two ``scripts/torch_fleet_worker.py`` processes on
+    ``dev`` under an in-process scheduler; a live migration, a SIGSTOP
+    liveness alert and its resolve, the fleet's HTTP surface, a SIGKILL
+    failover, an overflow REJECT, a three-participant merged trace, and
+    every final checksum equal to an in-process control on ``dev``."""
+    import os
+    import signal
+    import tempfile
+    import urllib.request
+
+    from bevy_ggrs_tpu_torch import telemetry
+    from bevy_ggrs_tpu_torch.fleet import FleetScheduler, LobbySpec, start_fleet_exporter
+
+    target, entities = SIZES["fleet_cli_frames"], SIZES["fleet_cli_entities"]
+    n_lobbies, cap = SIZES["fleet_cli_lobbies"], SIZES["fleet_cli_capacity"]
+    wait_s = SIZES["fleet_cli_wait_s"]
+    telemetry.reset()
+    telemetry.enable()
+    # a fresh worker's first chunk pays for the CUDA context, the library
+    # load and the allocator's growth: the JAX bench's 8 s timeout
+    sched = FleetScheduler(worker_timeout_s=8.0)
+    port = sched.local_addr[1]
+    exporter = start_fleet_exporter(sched.observer, port=0)
+    tmp = tempfile.TemporaryDirectory(prefix="fleet_cli_")
+    procs, logs = {}, {}
+
+    def spawn(wid):
+        logs[wid] = open(os.path.join(tmp.name, f"{wid}.log"), "w")
+        procs[wid] = subprocess.Popen(
+            [sys.executable, str(HERE / "scripts" / "torch_fleet_worker.py"),
+             "--scheduler", f"127.0.0.1:{port}", "--worker-id", wid,
+             "--capacity", str(cap), "--ckpt-every", "40", "--pace-fps", "240",
+             "--device", dev.type,
+             "--trace-out", os.path.join(tmp.name, f"{wid}.trace.json"),
+             "--trace-every", "0.5"],
+            cwd=HERE, stdout=logs[wid], stderr=subprocess.STDOUT)
+
+    def pump_until(cond, what):
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline:
+            sched.poll()
+            if cond():
+                return
+            dead = [w for w, p in procs.items() if p.poll() is not None and w != victim[0]]
+            if dead:
+                break
+            time.sleep(0.002)
+        tails = {w: Path(tmp.name, f"{w}.log").read_text()[-2000:] for w in procs}
+        raise SystemExit(f"chip_smoke: fleet (b): no {what}: {sched.snapshot()['lobbies']}; "
+                         f"worker logs: {tails}")
+
+    victim = [None]
+    t0 = time.perf_counter()
+    try:
+        spawn("wA")
+        spawn("wB")
+        pump_until(lambda: len(sched.workers) == 2, "2 workers registered")
+        t_registered = time.perf_counter() - t0
+        # the last lobby runs 4x longer, so it is still mid-game when its
+        # worker is killed
+        specs = [LobbySpec(lobby_id=f"fl{i}", entities=entities, seed=i,
+                           target_frames=target * (4 if i == n_lobbies - 1 else 1))
+                 for i in range(n_lobbies)]
+        for spec in specs:
+            ok, who = sched.submit(spec)
+            if not ok:
+                raise SystemExit(f"chip_smoke: fleet (b): {spec.lobby_id} rejected ({who})")
+        pump_until(lambda: all(sched.lobbies[s.lobby_id].state in ("running", "done")
+                               for s in specs), "placement")
+        fillers = [f"fill{i}" for i in range(2 * cap - n_lobbies)]
+        for fid in fillers:
+            ok, who = sched.submit(LobbySpec(lobby_id=fid, entities=16,
+                                             target_frames=1_000_000, input_mode="external"))
+            if not ok:
+                raise SystemExit(f"chip_smoke: fleet (b): filler {fid} rejected ({who})")
+        reject = fleet_overflow(sched, [], LobbySpec(lobby_id="overflow", entities=16))
+        if reject != "capacity":
+            raise SystemExit(f"chip_smoke: fleet (b): overflow verdict {reject!r}")
+        for fid in fillers:
+            sched.drop(fid)
+        mig = specs[-1].lobby_id
+        rec = sched.lobbies[mig]
+        pump_until(lambda: rec.frame >= target // 3, f"{mig} at frame {target // 3}")
+        src = rec.worker_id
+        if not sched.migrate(mig):
+            raise SystemExit("chip_smoke: fleet (b): migrate() found no destination")
+        pump_until(lambda: rec.state == "running" and rec.worker_id != src, "the migration")
+        # SIGSTOP the migration source: exactly one liveness fire, which
+        # resolves after SIGCONT; the HTTP surface answers meanwhile
+        t_stop = time.monotonic()
+        os.kill(procs[src].pid, signal.SIGSTOP)
+
+        def fires():
+            return [a for a in sched.observer.alert_history()
+                    if a["slo_id"] == "heartbeat_liveness" and a["subject"] == src
+                    and a["state"] == "fire" and a["t"] >= t_stop]
+
+        pump_until(lambda: bool(fires()), f"a liveness alert on stopped {src}")
+        alert_ms = (fires()[0]["t"] - t_stop) * 1e3
+        base = f"http://127.0.0.1:{exporter.port}"
+        with urllib.request.urlopen(base + "/fleet", timeout=10) as r:
+            fleet_json = json.load(r)
+        with urllib.request.urlopen(base + "/qos", timeout=10) as r:
+            qos_json = json.load(r)
+        with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+            metrics_text = r.read().decode("utf-8")
+        http_fail = []
+        if fleet_json.get("schema") != "fleet/v1" or not all(
+                (fleet_json["workers"].get(w) or {}).get("series", {}).get("qos_floor")
+                for w in ("wA", "wB")):
+            http_fail.append("/fleet")
+        if not any(a["slo_id"] == "heartbeat_liveness" and a["subject"] == src
+                   for a in fleet_json.get("alerts", {}).get("active", [])):
+            http_fail.append("/fleet active alert")
+        if qos_json.get("schema") != "fleet-qos/v1":
+            http_fail.append("/qos")
+        if not all(f'worker="{w}"' in metrics_text for w in ("wA", "wB")):
+            http_fail.append("/metrics worker= labels")
+        if http_fail:
+            raise SystemExit(f"chip_smoke: fleet (b): HTTP surface: {http_fail}")
+        os.kill(procs[src].pid, signal.SIGCONT)
+        pump_until(lambda: not any(a["slo_id"] == "heartbeat_liveness"
+                                   and a["subject"] == src
+                                   for a in sched.observer.active_alerts()),
+                   "the liveness alert to resolve")
+        if len(fires()) != 1:
+            raise SystemExit(f"chip_smoke: fleet (b): {len(fires())} liveness fires for "
+                             f"{src}, not one")
+        # SIGKILL the long lobby's worker once a confirmed checkpoint is in
+        # hand and the lobby is still mid-game
+        pump_until(lambda: rec.state == "running" and rec.ckpt_blob is not None,
+                   "a confirmed checkpoint of the long lobby")
+        if rec.frame >= specs[-1].target_frames:
+            raise SystemExit("chip_smoke: fleet (b): the long lobby finished before the kill")
+        victim[0] = rec.worker_id
+        procs[victim[0]].kill()
+        procs[victim[0]].wait(timeout=30)
+        pump_until(lambda: all(sched.lobbies[s.lobby_id].state == "done" for s in specs),
+                   "every lobby to finish")
+        seconds = time.perf_counter() - t0
+        events = list(sched.events)
+        failovers = [e for e in events if e["event"] == "failover"]
+        if not failovers or any(e.get("frame", 0) <= 0 for e in failovers):
+            raise SystemExit(f"chip_smoke: fleet (b): failovers {failovers}")
+        # the three-participant trace: the scheduler's, then both workers'
+        # last dumps (the victim's from before its kill)
+        merged = telemetry.merge_traces(
+            telemetry.chrome_trace(process_name="scheduler"),
+            *[json.loads(Path(tmp.name, f"{w}.trace.json").read_text()) for w in ("wA", "wB")])
+        errs = telemetry.validate_chrome_trace(merged)
+        evs = merged["traceEvents"]
+        starts = {e["id"]: e for e in evs if e.get("cat") == "fleet_flow"
+                  and e.get("name") == "migration" and e["ph"] == "s"}
+        spans = [(e["ts"] - starts[e["id"]]["ts"]) / 1e3 for e in evs
+                 if e.get("cat") == "fleet_flow" and e.get("name") == "migration"
+                 and e["ph"] == "f" and e["id"] in starts
+                 and e["pid"] != starts[e["id"]]["pid"]]
+        if errs or not spans:
+            raise SystemExit(f"chip_smoke: fleet (b): merged trace: {errs[:5]}, "
+                             f"{len(spans)} cross-pid migration flows")
+        finals = {s.lobby_id: sched.lobbies[s.lobby_id].final_checksum for s in specs}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGCONT)
+                p.kill()
+            p.wait(timeout=30)
+        for f in logs.values():
+            f.close()
+        exporter.close()
+        sched.close()
+        telemetry.disable()
+        tmp.cleanup()
+    want = fleet_controls(specs, dev)
+    if finals != want:
+        raise SystemExit(f"chip_smoke: fleet (b): final checksums {finals} != controls {want}")
+    downtime = [e["downtime_ms"] for e in events if e["event"] == "migrate_ok"]
+    telemetry.reset()
+    emit("fleet_subprocesses", card=card, workers=2, capacity=cap, lobbies=n_lobbies,
+         entities=entities, target_frames=target, seconds=seconds,
+         seconds_to_register=t_registered, overflow_reject=reject,
+         migration_downtime_ms=downtime, migration_flow_span_ms=spans,
+         failover_frames=[e["frame"] for e in failovers],
+         liveness_alert_latency_ms=alert_ms, liveness_fires=1,
+         trace_events=len(evs), final_checksums_equal_controls=len(want))
+
+
+def phase_fleet(dev, card: str) -> int:
+    """The fleet on the card: (a) in process, (b) with the port's CLIs as
+    subprocesses; returns (a)'s fold launches."""
+    launches = fleet_in_process(dev, card)
+    fleet_subprocesses(dev, card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3546,7 +4222,8 @@ def main() -> int:
                "pipeline": phase_pipeline(dev, card),
                **phase_speculation(dev, card), "batched": phase_batched(dev, card),
                "megastep": phase_megastep(dev, card), "models": phase_models(dev, card),
-               "spectator": phase_spectator(dev), "native": phase_native(dev)}
+               "spectator": phase_spectator(dev), "native": phase_native(dev),
+               "fleet": phase_fleet(dev, card)}
     print(json.dumps({"kernels": [{
         "name": "checksum_fold",
         "route": "cuda",

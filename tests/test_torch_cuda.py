@@ -14,7 +14,10 @@ tick flat in the lobby count; telemetry: a pair with telemetry on under
 sync debug "error", reconciling its phases, blame and devmem rows, the
 strict device-memory census against the allocator, and a forensics report
 on a forced desync, its per-component parts from the fold kernel equal to
-the CPU's.
+the CPU's; the fleet: a lobby's live migration and failover on the card
+ending on its control's checksum, the fold on a lobby chunk's
+``[16, 10000]`` stack, and the armed compile guard tripping on a variant
+first seen after warm-up.
 
 Marked ``cuda``; each skips without a card.  This file imports neither JAX
 nor the JAX package, so it runs on a machine without JAX:
@@ -923,3 +926,116 @@ def test_forensics_report_on_card_equals_plain_and_cpu(cuda, telemetry_on, tmp_p
     assert merged["first_divergent_frame"] is not None
     assert "pos" in merged["component_diff"]
     assert all(json.loads(p.read_text())["component_checksums"] for ps in reports for p in ps)
+
+
+# -- the fleet ------------------------------------------------------------------------
+
+
+def _pump_fleet(sched, workers, cond, timeout_s):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        sched.poll()
+        for w in workers:
+            w.poll()
+        if cond():
+            return True
+        time.sleep(0.002)
+    return False
+
+
+def test_fleet_migration_and_failover_on_card_equal_control(cuda):
+    """Two workers on the card: one 10,000-entity lobby migrates live, then
+    the worker hosting both lobbies is closed and they fail over from
+    their last confirmed checkpoints; each ends on its unmigrated control's
+    checksum on the card, bit for bit."""
+    from bevy_ggrs_tpu_torch import telemetry
+    from bevy_ggrs_tpu_torch.fleet import (
+        FleetScheduler, FleetWorker, LobbySim, LobbySpec, checksum_hex)
+
+    telemetry.reset()
+    telemetry.enable()
+    sched = FleetScheduler(worker_timeout_s=30.0)
+    workers = [FleetWorker(f"w{i}", sched.local_addr, capacity=2, ckpt_every_frames=40,
+                           device=cuda) for i in range(2)]
+    specs = [LobbySpec(lobby_id=f"L{i}", app="stress_soa", entities=10_000, seed=i,
+                       target_frames=t) for i, t in enumerate((1200, 1600))]
+    try:
+        for w in workers:
+            w.register()
+        assert _pump_fleet(sched, workers, lambda: len(sched.workers) == 2, 30)
+        for spec in specs:
+            assert sched.submit(spec)[0]
+        recs = [sched.lobbies[s.lobby_id] for s in specs]
+        assert _pump_fleet(sched, workers, lambda: all(r.state == "running" for r in recs), 60)
+        src = recs[0].worker_id
+        assert sched.migrate("L0")
+        assert _pump_fleet(sched, workers, lambda: recs[0].state == "running"
+                           and recs[0].worker_id != src, 60)
+        host = recs[0].worker_id
+        assert _pump_fleet(sched, workers, lambda: all(
+            r.ckpt_blob is not None and r.ckpt_frame > 0 for r in recs), 60)
+        assert all(r.worker_id == host and r.state == "running" for r in recs)
+        victim = next(w for w in workers if w.worker_id == host)
+        survivor = next(w for w in workers if w is not victim)
+        victim.close()
+        sched.worker_timeout_s = 2.0
+        assert _pump_fleet(sched, [survivor], lambda: all(r.state == "done" for r in recs), 120)
+    finally:
+        for w in workers:
+            w.close()
+        sched.close()
+        telemetry.disable()
+    series = telemetry.summary()["metrics"]["lobby_migrations_total"]["series"]
+    assert series.get("outcome=ok") == 1 and series.get("outcome=failover") == 2
+    assert all(e["frame"] > 0 for e in sched.events if e["event"] == "failover")
+    for spec, rec in zip(specs, recs):
+        control = LobbySim(spec, device=cuda)
+        control.run_to(spec.target_frames)
+        assert rec.final_checksum == checksum_hex(control.checksum()), spec.lobby_id
+    telemetry.reset()
+
+
+def test_fold_on_a_fleet_chunk_stack_equals_plain(cuda):
+    """A lobby chunk's [16, 10000] stack from the packed canonical program:
+    the fold kernel equals its plain version, and the chunk's checksums the
+    stack's."""
+    from bevy_ggrs_tpu_torch.fleet import LOBBY_CHUNK, LobbySim, LobbySpec
+
+    sim = LobbySim(LobbySpec(lobby_id="c", entities=10_000, seed=4), device=cuda)
+    fn, kept = sim.app.packed_resim_fn, []
+
+    def keeping(state, packed):
+        out = fn(state, packed)
+        kept.append(out)
+        return out
+
+    sim.app.__dict__["packed_resim_fn"] = keeping
+    cf.launches = 0
+    assert sim.step() == LOBBY_CHUNK and sim.step(5) == 5
+    assert cf.launches == 2
+    for _final, stacked, checks in kept:
+        assert stacked.alive.shape == (LOBBY_CHUNK, 10_000)
+        args = fold_inputs(sim.app.reg, stacked,
+                           [n for n, s in sim.app.reg.components.items() if s.checksum])
+        assert torch.equal(cf.checksum_fold(*args), cf.checksum_fold_plain(*args))
+        assert torch.equal(checks, world_checksums(sim.app.reg, stacked))
+
+
+def test_armed_compile_guard_trips_on_a_new_variant_on_card(cuda):
+    from bevy_ggrs_tpu_torch.utils import compile_guard
+
+    g = compile_guard.set_compile_guard(True)
+    try:
+        app = stress_soa.make_app(n_entities=N, device=cuda)
+        session = (SessionBuilder.for_app(app).with_check_distance(3)
+                   .start_synctest_session())
+        runner = GgrsRunner(app, session,
+                            read_inputs=lambda handles: {h: np.uint8(h) for h in handles})
+        runner.tick()
+        assert runner.arm_compile_guard()
+        with pytest.raises(compile_guard.RecompileError) as ei:
+            for _ in range(10):
+                runner.tick()
+        assert ei.value.owner == "solo" and len(g.steady_compiles) == 1
+    finally:
+        compile_guard.set_compile_guard(False)

@@ -182,10 +182,12 @@ def test_world_round_trips_through_numpy():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, runpy, sys\n"
         "import bevy_ggrs_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for cli in CLIS:\n"
+        "    runpy.run_path(cli, run_name='cli_import_check')\n"
         "missing = [m for m in sys.argv[1:] if m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'bevy_ggrs_tpu' or m.startswith('bevy_ggrs_tpu.')\n"
@@ -211,16 +213,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "bevy_ggrs_tpu_torch.snapshot.persist", "bevy_ggrs_tpu_torch.session.replay",
                  "bevy_ggrs_tpu_torch.session.room", "bevy_ggrs_tpu_torch.models.particles",
                  "bevy_ggrs_tpu_torch.models.crowd", "bevy_ggrs_tpu_torch.models.pong"]
+    # the fleet, the compile guard and the platform helper
+    expected += [f"bevy_ggrs_tpu_torch.fleet.{m}" for m in (
+        "protocol", "lobby", "observe", "scheduler", "worker")]
+    expected += ["bevy_ggrs_tpu_torch.fleet", "bevy_ggrs_tpu_torch.utils.compile_guard",
+                 "bevy_ggrs_tpu_torch.utils.platform"]
+    # the port's CLIs, their top-level imports run (not their mains)
+    clis = [str(ROOT / "scripts" / f"torch_{n}.py")
+            for n in ("fleet_worker", "fleet_scheduler", "replay_tool")]
+    code = f"CLIS = {clis!r}\n" + code
     res = subprocess.run([sys.executable, "-c", code, *expected], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    # chip_smoke.py drives the port only
+    # chip_smoke.py and the CLIs drive the port only, in any function too
     import ast
 
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
-    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
-    assert not [n for n in names if n.split(".")[0] in ("jax", "bevy_ggrs_tpu", "ml_dtypes")]
+    for path in [ROOT / "chip_smoke.py", *map(Path, clis)]:
+        tree = ast.parse(path.read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+        assert not [n for n in names if n.split(".")[0] in ("jax", "bevy_ggrs_tpu", "ml_dtypes")]
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
