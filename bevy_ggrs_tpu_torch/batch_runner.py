@@ -53,9 +53,18 @@ resident worlds, each lobby's ring and the staging, and a per-lobby
 forensics report on a desync or SyncTest mismatch when a forensics
 directory is set.  No seam reads a tensor but that report.
 
-Left out: ``mesh=`` takes only ``None`` (``ShardPlanner``, its
-``shard_imbalance_ratio`` gauge and the sharded executor wait for ROADMAP
-A6).  The counters are plain attributes and :meth:`stats`.
+Lobbies across devices (``mesh=parallel.make_lobby_mesh(...)`` with more
+than one shard): the resident world is padded to a multiple of the shard
+count and held as a :class:`~.snapshot.lazy.LobbyShards`, one contiguous
+block of lobby lanes per shard on its device; every wave goes through the
+:class:`~.ops.batch.ShardedWaveExecutor` (one call per shard, no
+collectives), a :class:`ShardPlanner` publishes each wave's
+``shard_imbalance_ratio``, and ``stats()["sharded"]`` reports the layout.
+Lobby ``b`` lives on shard ``b // lanes`` at row ``b % lanes``; loads,
+saves and checksum refs map it there.  A one-shard mesh keeps the plain
+executor (the JAX package's fallback), and speculation with a mesh is
+refused with the JAX error.  The counters are plain attributes and
+:meth:`stats`.
 """
 
 from __future__ import annotations
@@ -70,7 +79,12 @@ import torch
 
 from . import telemetry
 from .app import App
-from .ops.batch import BucketedWaveExecutor, DraftWaveScheduler, stack_worlds
+from .ops.batch import (
+    BucketedWaveExecutor,
+    DraftWaveScheduler,
+    ShardedWaveExecutor,
+    stack_worlds,
+)
 from .ops.packing import pack_prefix, pack_row, repeat_last_row
 from .ops.speculation import SpeculationCache, SpeculationConfig
 from .session.events import (
@@ -87,6 +101,7 @@ from .snapshot.checksum import world_checksums
 from .snapshot.lazy import (
     BatchChecks,
     LazySlice,
+    LobbyShards,
     ReadbackStats,
     RowIndexStager,
     fused_gather_rows,
@@ -137,13 +152,77 @@ def _split_ops(requests: List[GgrsRequest]) -> List[_Op]:
 
 def _set_row(tree, b: int, row):
     """``tree`` with lobby ``b``'s row replaced by ``row``, out of place
-    (one ``cat`` per leaf, no index upload)."""
+    (one ``cat`` per leaf, no index upload); on a :class:`LobbyShards`,
+    in lobby ``b``'s shard."""
+    if isinstance(tree, LobbyShards):
+        d, r = tree.locate(b)
+        parts = list(tree.parts)
+        dev = tree.devices[d]
+        parts[d] = _set_row(parts[d], r, tree_map(lambda x: x.to(dev), row))
+        return LobbyShards(parts, tree.lanes)
     return tree_map(lambda a, x: torch.cat((a[:b], x.unsqueeze(0), a[b + 1:])), tree, row)
+
+
+def _world_bytes(worlds) -> int:
+    if isinstance(worlds, LobbyShards):
+        return sum(tree_device_bytes(p) for p in worlds.parts)
+    return tree_device_bytes(worlds)
+
+
+class ShardPlanner:
+    """Host-side shard accounting for the lobby-sharded executor (the JAX
+    class, arithmetic for arithmetic).
+
+    Lobby lanes map to shards statically: lobby ``b`` lives on shard
+    ``b // (m_pad / D)`` (contiguous blocks), so the decision the planner
+    owns is the per-wave shape: it derives each shard's active-lane count
+    and hottest advance depth from the wave's ``ks``, publishes the
+    ``shard_imbalance_ratio`` gauge (max/mean active lobbies per shard;
+    1.0 is a flat wave), and tracks the worst ratio seen.  A ratio that
+    stays high is the signal to re-home lobbies across shards."""
+
+    def __init__(self, n_lobbies: int, n_devices: int):
+        self.n_lobbies = int(n_lobbies)
+        self.n_devices = int(n_devices)
+        self.m_pad = -(-self.n_lobbies // self.n_devices) * self.n_devices
+        self.lanes_per_shard = self.m_pad // self.n_devices
+        self.last_imbalance = 1.0
+        self.max_imbalance = 1.0
+        self.waves_planned = 0
+        self._g_imbalance = telemetry.registry().bind_gauge(
+            "shard_imbalance_ratio",
+            "max/mean active lobbies per device for the tick's run wave")
+
+    def shard_of(self, b: int) -> int:
+        """Shard index owning lobby lane ``b``."""
+        return b // self.lanes_per_shard
+
+    def plan(self, ks: Sequence[int]) -> dict:
+        """One wave's per-lobby advance counts as per-shard buckets:
+        ``{"active_per_shard", "k_hot_per_shard", "imbalance_ratio"}``;
+        publishes the gauge."""
+        active = [0] * self.n_devices
+        hot = [0] * self.n_devices
+        for b, k in enumerate(ks):
+            if k > 0:
+                d = self.shard_of(b)
+                active[d] += 1
+                hot[d] = max(hot[d], k)
+        total = sum(active)
+        ratio = (max(active) * self.n_devices / total) if total else 1.0
+        self.last_imbalance = ratio
+        self.max_imbalance = max(self.max_imbalance, ratio)
+        self.waves_planned += 1
+        self._g_imbalance.set(ratio)
+        return {"active_per_shard": active, "k_hot_per_shard": hot,
+                "imbalance_ratio": ratio}
 
 
 class BatchedRunner:
     """M lobbies, one call per wave (see module docstring).  Runs on the
-    app's device: CUDA unless the app was built with ``device="cpu"``."""
+    app's device: CUDA unless the app was built with ``device="cpu"``.
+    ``mesh`` (a ``parallel.make_lobby_mesh`` handle) shards the lobby axis
+    when it has more than one shard."""
 
     def __init__(
         self,
@@ -161,9 +240,6 @@ class BatchedRunner:
         if app.canonical_depth is not None or app.canonical_branches is not None:
             raise ValueError("BatchedRunner is incompatible with canonical mode "
                              "(see ops/batch.make_batched_resim_fn)")
-        if mesh is not None:
-            raise ValueError("BatchedRunner(mesh=...) is not ported yet: the "
-                             "lobby-sharded executor waits for multi-device support")
         self.app = app
         self.sessions = list(sessions)
         m = len(self.sessions)
@@ -192,13 +268,34 @@ class BatchedRunner:
             if s.num_players() != self._np:
                 raise ValueError("all lobbies must share num_players "
                                  "(one batched input tensor)")
-        self.worlds = stack_worlds([app.init_state() for _ in range(m)])
-        self.exec = BucketedWaveExecutor(app, self.k_max)
+        # lobby-mesh sharding engages only when the mesh has more than one
+        # shard (a one-card host's default mesh keeps the plain executor)
+        if mesh is not None and not hasattr(mesh, "shard_names"):
+            raise ValueError(f"mesh must be a lobby mesh (parallel.make_lobby_mesh), "
+                             f"not {type(mesh).__name__}")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.planner: Optional[ShardPlanner] = None
+        if self.mesh is not None:
+            self.planner = ShardPlanner(m, self.mesh.size)
+        m_pad = self._m_pad = self.planner.m_pad if self.planner is not None else m
+        # the resident world: padded to a shard-count multiple in sharded
+        # mode (pad lanes stay idle: every wave masks them at n_real=0) and
+        # held as one block of lanes per shard
+        self.worlds = stack_worlds([app.init_state() for _ in range(m_pad)])
+        if self.mesh is not None:
+            from .parallel.mesh import shard_lobby_worlds
+
+            self.worlds = shard_lobby_worlds(self.mesh, self.worlds)
+            self.exec = ShardedWaveExecutor(app, self.k_max, self.mesh)
+            init_checks = self.worlds.map(lambda w: world_checksums(app.reg, w))
+        else:
+            self.exec = BucketedWaveExecutor(app, self.k_max)
+            init_checks = world_checksums(app.reg, self.worlds)
         self._rows = RowIndexStager(app.device)
         self.readbacks = ReadbackStats()
         self.pipeline = bool(pipeline)
         self._rbq = readback_queue()
-        init_batch = BatchChecks(world_checksums(app.reg, self.worlds), self.readbacks)
+        init_batch = BatchChecks(init_checks, self.readbacks)
         if self.pipeline:
             self._rbq.start(init_batch)
         self._world_checksum = [init_batch.ref(b) for b in range(m)]
@@ -207,11 +304,11 @@ class BatchedRunner:
         # instance's tag
         self._devmem_tag = devmem.scope("batched")
         weakref.finalize(self, devmem.forget_scope, self._devmem_tag)
-        worlds_nbytes = tree_device_bytes(self.worlds)
+        worlds_nbytes = _world_bytes(self.worlds)
         devmem.note(self._devmem_tag + "/worlds", worlds_nbytes)
         self.rings = [SnapshotRing(depth=max(windows) + 2) for _ in range(m)]
         for b, ring in enumerate(self.rings):
-            ring.set_accounting(f"{self._devmem_tag}/ring{b}", worlds_nbytes // m)
+            ring.set_accounting(f"{self._devmem_tag}/ring{b}", worlds_nbytes // m_pad)
         self.frames = [0] * m  # per-lobby RollbackFrameCount
         self.confirmed = [NULL_FRAME] * m
         self.ticks = 0
@@ -224,12 +321,12 @@ class BatchedRunner:
         # keep stale rows (the masked program discards them, the exact one
         # never sees them).  The executor copies a wave's slice into pinned
         # staging of its own and uploads it once.
-        self._stage_inputs = np.zeros((m, self.k_max, self._np, *app.input_shape),
+        self._stage_inputs = np.zeros((m_pad, self.k_max, self._np, *app.input_shape),
                                       app.input_dtype)
-        self._stage_status = np.zeros((m, self.k_max, self._np), np.int8)
-        self._stage_starts = np.zeros((m,), np.int32)
+        self._stage_status = np.zeros((m_pad, self.k_max, self._np), np.int8)
+        self._stage_starts = np.zeros((m_pad,), np.int32)
         self.packed = bool(packed)
-        self._stage_packed = (app.packed_spec.new_batch_buffer(m, self.k_max)
+        self._stage_packed = (app.packed_spec.new_batch_buffer(m_pad, self.k_max)
                               if self.packed else None)
         devmem.note(self._devmem_tag + "/staging",
                     self._stage_inputs.nbytes + self._stage_status.nbytes
@@ -252,6 +349,10 @@ class BatchedRunner:
                 raise ValueError("BatchedRunner speculation requires an identity snapshot "
                                  "strategy: cached branch states scatter straight into "
                                  "the resident stacked world on a hit")
+            if self.mesh is not None:
+                raise ValueError("BatchedRunner speculation is not shard-aware yet: the "
+                                 "draft wave's base gather and hit scatter assume a "
+                                 "single-device resident world")
             depth = max(speculation.depth, 1)
             if depth > self.k_max:
                 raise ValueError(f"speculation depth {depth} exceeds k_max={self.k_max}; "
@@ -526,7 +627,7 @@ class BatchedRunner:
                         repeat_last_row(lane, len(a), bucket)
                 else:
                     inputs, status = self._stage_inputs, self._stage_status
-                    self._stage_starts[:] = self.frames
+                    self._stage_starts[:m] = self.frames
                     for b, a in enumerate(adv):
                         if not a:
                             continue
@@ -541,13 +642,20 @@ class BatchedRunner:
             if _REG.enabled:
                 telemetry.record("dispatch", batched=True, k_hot=k_hot,
                                  active_lobbies=sum(1 for k in ks if k > 0))
+            # sharded: the planner publishes the wave's per-shard shape, and
+            # the executor sees the padded lane list (the resident world and
+            # staging are padded already: no per-wave pad or trim)
+            wave_ks = ks
+            if self.planner is not None:
+                self.planner.plan(ks)
+                wave_ks = ks + [0] * (self._m_pad - m)
             with ph.phase("wave_dispatch"), span("AdvanceWorldBatched"):
                 if self.packed:
                     bucket, finals, stacked, checks_flat = self.exec.run_wave_packed(
-                        self.worlds, self._stage_packed, ks)
+                        self.worlds, self._stage_packed, wave_ks)
                 else:
                     bucket, finals, stacked, checks_flat = self.exec.run_wave(
-                        self.worlds, inputs, status, self._stage_starts, ks)
+                        self.worlds, inputs, status, self._stage_starts, wave_ks)
                 batch = BatchChecks(checks_flat, self.readbacks)
                 if self.pipeline:
                     self._rbq.start(batch)
@@ -731,6 +839,15 @@ class BatchedRunner:
             "staging_deferred_blocks": deferred + self._rows.deferred_blocks,
             "staging_landed_free": landed + self._rows.landed_free,
         }
+        if self.planner is not None:
+            out["sharded"] = {
+                "devices": self.planner.n_devices,
+                "lanes_per_shard": self.planner.lanes_per_shard,
+                "pad_lanes": self._m_pad - len(self.sessions),
+                "imbalance_last": round(self.planner.last_imbalance, 4),
+                "imbalance_max": round(self.planner.max_imbalance, 4),
+                "waves_planned": self.planner.waves_planned,
+            }
         if self.spec_caches is not None:
             out["speculation"] = {
                 "hits": sum(c.hits for c in self.spec_caches),

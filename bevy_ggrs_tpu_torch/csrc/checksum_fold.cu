@@ -51,6 +51,15 @@
 //   no host-to-device copy, no allocation, no synchronisation, so the two
 //   launches are safe inside a CUDA graph.  More than kMaxComps components
 //   take one launch pair per chunk; a later chunk XORs its parts into out.
+//
+// The split pass, for a world whose entity axis is sharded over ranks: every
+// slot (a component's sum for one seed, and the active count) is a wrapping
+// u32 sum over rows, so the global slots are the wrapping sums of the ranks'
+// local slots.  checksum_fold_partial_launch folds the local rows and writes
+// the slot sums (fold_kernel, then slots_kernel reducing the blocks); the
+// caller all-reduces them; checksum_fold_finalize_launch starts from the sums
+// and applies the tags, the XOR and the entity part (finalize_kernel reading
+// slots instead of partials).  The one-call pass above is unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,8 +85,10 @@ struct Params {
   const uint8_t* alive;      // [k, n] bool
   const uint8_t* pending;    // [k, n] bool
   const int32_t* next_id;    // [k]
-  uint32_t* partials;        // [k, 2 * ncomp + 1, blocks_x]
-  int64_t* out;              // [k, 1 + ncomp_total, 2]: checksum, then parts
+  uint32_t* partials;        // [k, 2 * ncomp + 1, blocks_x]; finalize from
+                             // slots: the int64 slots [k, 2 * ncomp_total + 1]
+  int64_t* out;              // [k, 1 + ncomp_total, 2]: checksum, then parts;
+                             // partial pass: the slots [k, 2 * ncomp_total + 1]
   int64_t n;
   uint32_t entity_tag[2];
   int32_t k;
@@ -236,9 +247,17 @@ fold_kernel(const __grid_constant__ Params p) {
   }
 }
 
+// Slot s of the chunk as a slot of the whole pass: component c's seed-s sum
+// is 2 * (comp0 + c) + s, the active count is 2 * ncomp_total.
+__device__ __forceinline__ int global_slot(const Params& p, int s) {
+  return s == 2 * p.ncomp ? 2 * p.ncomp_total : 2 * p.comp0 + s;
+}
+
 // Grid k, block (32, kFinWarps).  Reduces frame f's partials, applies the
 // tags, writes the parts and XORs them (with the entity part, for the first
 // chunk; with out's earlier value, for a later one) into out[f, 0, :].
+// kFromSlots: the sums come reduced already, as int64 slots in p.partials.
+template <bool kFromSlots>
 __global__ void __launch_bounds__(32 * kFinWarps)
 finalize_kernel(const __grid_constant__ Params p) {
   __shared__ uint32_t part[2][kMaxComps];
@@ -247,10 +266,17 @@ finalize_kernel(const __grid_constant__ Params p) {
   const int nc = p.ncomp;
   const int slots = 2 * nc + 1;
   for (int s = threadIdx.y; s < slots; s += kFinWarps) {
-    const uint32_t* src = p.partials + ((int64_t)f * slots + s) * p.blocks_x;
     uint32_t v = 0u;
-    for (int b = threadIdx.x; b < p.blocks_x; b += 32) v += src[b];
-    v = warp_sum(v);
+    if constexpr (kFromSlots) {
+      const int64_t* sums = reinterpret_cast<const int64_t*>(p.partials);
+      if (threadIdx.x == 0) {
+        v = (uint32_t)sums[(int64_t)f * (2 * p.ncomp_total + 1) + global_slot(p, s)];
+      }
+    } else {
+      const uint32_t* src = p.partials + ((int64_t)f * slots + s) * p.blocks_x;
+      for (int b = threadIdx.x; b < p.blocks_x; b += 32) v += src[b];
+      v = warp_sum(v);
+    }
     if (threadIdx.x == 0) {
       if (s == 2 * nc) {
         count = v;
@@ -281,26 +307,50 @@ finalize_kernel(const __grid_constant__ Params p) {
   }
 }
 
+// Grid k, block (32, kFinWarps).  Reduces frame f's partials to the chunk's
+// slot sums and writes them, as int64 values, at their slots of p.out.
+__global__ void __launch_bounds__(32 * kFinWarps)
+slots_kernel(const __grid_constant__ Params p) {
+  const int f = blockIdx.x;
+  const int slots = 2 * p.ncomp + 1;
+  for (int s = threadIdx.y; s < slots; s += kFinWarps) {
+    const uint32_t* src = p.partials + ((int64_t)f * slots + s) * p.blocks_x;
+    uint32_t v = 0u;
+    for (int b = threadIdx.x; b < p.blocks_x; b += 32) v += src[b];
+    v = warp_sum(v);
+    if (threadIdx.x == 0) {
+      p.out[(int64_t)f * (2 * p.ncomp_total + 1) + global_slot(p, s)] = (int64_t)v;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int checksum_fold_max_comps() { return kMaxComps; }
 extern "C" int checksum_fold_threads() { return kThreads; }
 extern "C" int checksum_fold_params_size() { return (int)sizeof(Params); }
 
-// Launch one chunk's fold and finalisation on `stream`, on `device`.
-// Returns cudaGetLastError() (0 on success).
-// `params` points to a Params (a void pointer: Params has internal linkage).
-extern "C" int checksum_fold_launch(int device, const void* params, void* stream) {
-  const Params* p = static_cast<const Params*>(params);
-  if (p->k <= 0 || p->k > 65535 || p->n <= 0 || p->ncomp < 0 ||
-      p->ncomp > kMaxComps || p->blocks_x <= 0 || (p->vec && p->n % 4 != 0)) {
-    return (int)cudaErrorInvalidValue;
-  }
+namespace {
+
+// Runs `launch` with `device` current; returns cudaGetLastError() (0 on
+// success).
+template <typename F>
+int on_device(int device, F launch) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
   if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = launch();
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
+}
+
+bool valid_fold(const Params* p) {
+  return !(p->k <= 0 || p->k > 65535 || p->n <= 0 || p->ncomp < 0 ||
+           p->ncomp > kMaxComps || p->blocks_x <= 0 || (p->vec && p->n % 4 != 0));
+}
+
+cudaError_t launch_fold(const Params* p, cudaStream_t s) {
   const dim3 grid((unsigned)p->blocks_x, (unsigned)p->k);
   const size_t smem = (size_t)(2 * p->ncomp + 1) * kThreads * sizeof(uint32_t);
   if (p->vec) {
@@ -308,11 +358,55 @@ extern "C" int checksum_fold_launch(int device, const void* params, void* stream
   } else {
     fold_kernel<false><<<grid, kThreads, smem, s>>>(*p);
   }
-  err = cudaGetLastError();
-  if (err == cudaSuccess) {
-    finalize_kernel<<<(unsigned)p->k, dim3(32, kFinWarps), 0, s>>>(*p);
-    err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch one chunk's fold and finalisation on `stream`, on `device`.
+// Returns cudaGetLastError() (0 on success).
+// `params` points to a Params (a void pointer: Params has internal linkage).
+extern "C" int checksum_fold_launch(int device, const void* params, void* stream) {
+  const Params* p = static_cast<const Params*>(params);
+  if (!valid_fold(p)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&]() {
+    cudaError_t err = launch_fold(p, s);
+    if (err == cudaSuccess) {
+      finalize_kernel<false><<<(unsigned)p->k, dim3(32, kFinWarps), 0, s>>>(*p);
+      err = cudaGetLastError();
+    }
+    return err;
+  });
+}
+
+// The split pass's first half for one chunk: fold the rows and write the
+// chunk's slot sums (and the active count) into p->out, int64
+// [k, 2 * ncomp_total + 1].
+extern "C" int checksum_fold_partial_launch(int device, const void* params, void* stream) {
+  const Params* p = static_cast<const Params*>(params);
+  if (!valid_fold(p)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&]() {
+    cudaError_t err = launch_fold(p, s);
+    if (err == cudaSuccess) {
+      slots_kernel<<<(unsigned)p->k, dim3(32, kFinWarps), 0, s>>>(*p);
+      err = cudaGetLastError();
+    }
+    return err;
+  });
+}
+
+// The split pass's second half for one chunk: the checksums and parts from
+// the (all-reduced) slot sums in p->partials, int64 [k, 2 * ncomp_total + 1].
+extern "C" int checksum_fold_finalize_launch(int device, const void* params, void* stream) {
+  const Params* p = static_cast<const Params*>(params);
+  if (p->k <= 0 || p->k > 65535 || p->ncomp < 0 || p->ncomp > kMaxComps) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (current != device) cudaSetDevice(current);
-  return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&]() {
+    finalize_kernel<true><<<(unsigned)p->k, dim3(32, kFinWarps), 0, s>>>(*p);
+    return cudaGetLastError();
+  });
 }

@@ -40,7 +40,7 @@ def step(world: WorldState, ctx: StepCtx) -> WorldState:
     inp = torch.where(mask, inp, 0).to(torch.uint8)
 
     def bit(b):
-        return ((inp >> b) & 1).to(torch.float32)
+        return (torch.bitwise_right_shift(inp, b) & 1).to(torch.float32)
 
     acc_x = (bit(3) - bit(2)) * MOVEMENT_SPEED  # right - left
     acc_z = (bit(1) - bit(0)) * MOVEMENT_SPEED  # down - up

@@ -55,7 +55,7 @@ def make_step(app: App, num_teams: int):
         inp = torch.where(m, inp, 0).to(torch.int32)
 
         def bit(b):
-            return ((inp >> b) & 1).to(torch.float32)
+            return (torch.bitwise_right_shift(inp, b) & 1).to(torch.float32)
 
         steer = torch.stack([bit(3) - bit(2), bit(1) - bit(0)], dim=-1) * STEER
         to_centroid = centroids[team.long()] - pos

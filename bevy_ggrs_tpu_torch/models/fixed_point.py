@@ -35,13 +35,13 @@ def step(world: WorldState, ctx: StepCtx) -> WorldState:
     inp = torch.where(mask, inp, 0).to(torch.int32)
 
     def bit(b):
-        return (inp >> b) & 1
+        return torch.bitwise_right_shift(inp, b) & 1
 
     acc_x = (bit(3) - bit(2)) * ACCEL
     acc_z = (bit(1) - bit(0)) * ACCEL
 
     vel = world.comps["vel"] + torch.stack([acc_x, acc_z], dim=-1)
-    vel = (vel * 255) >> 8  # friction, arithmetic shift (exact, wrapping-safe)
+    vel = torch.bitwise_right_shift(vel * 255, 8)  # friction, arithmetic shift (exact, wrapping-safe)
 
     pos = torch.clamp(world.comps["pos"] + vel, -ARENA_HALF, ARENA_HALF)
 

@@ -68,7 +68,7 @@ def make_step(app: App):
         n_inputs = ctx.inputs.shape[0]
         inp = ctx.inputs.reshape(-1)[torch.clamp(owner, 0, n_inputs - 1).long()]
         inp = torch.where(is_paddle, inp, 0).to(torch.int32)
-        dy = ((inp & 1) - ((inp >> 1) & 1)).to(torch.float32) * PADDLE_SPEED
+        dy = ((inp & 1) - (torch.bitwise_right_shift(inp, 1) & 1)).to(torch.float32) * PADDLE_SPEED
         pad_y = torch.clamp(pos[:, 1] + dy * dt, -COURT_H + PADDLE_HALF,
                             COURT_H - PADDLE_HALF)
         pos = torch.stack([pos[:, 0], torch.where(is_paddle, pad_y, pos[:, 1])], dim=-1)

@@ -34,8 +34,9 @@ def step(world, ctx, gravity: torch.Tensor = None):
     """Gravity integration with elastic arena bounces (``[N, 3]`` columns).
 
     ``gravity`` is :func:`gravity_vector` on the world's device; an app
-    built by :func:`make_app` binds it once."""
-    if gravity is None:
+    built by :func:`make_app` binds it once, and a world on another card
+    (a lobby shard) makes its own."""
+    if gravity is None or gravity.device != world.device:
         gravity = gravity_vector(world.device)
     m = active_mask(world)[:, None]
     vel = world.comps["vel"] + gravity * ctx.delta_seconds

@@ -25,14 +25,22 @@ when every lane advances exactly that many frames, else the
 ``n_real``-masked one.  A packed wave is one ``int8[M, k + 1, W]`` upload
 from pinned staging (``ops/packing.py``).
 
+Lobbies across devices: :class:`ShardedWaveExecutor` splits the lobby
+axis over a lobby mesh (``parallel/mesh.make_lobby_mesh``) in contiguous
+blocks of ``M_pad / D`` lanes.  Lobbies never communicate, so there are no
+collectives: a wave is one pinned staging buffer with one non-blocking
+upload of each shard's block to its device, then one call of the same
+lane program per shard (:func:`make_sharded_packed_padded_fn` and its
+three siblings), all launched before anything waits, and one checksum
+fold launch per shard.  Its values are :class:`~..snapshot.lazy.LobbyShards`
+(one tree per shard, each on its own device).
+
 Left out: XLA's knobs (``unroll``, ``fused_checksums``: eager torch has
 one program, and the fold always runs once after the frame loop), the
 executor's ``recycle_outputs`` and the exact programs' ``donate_outputs``
 (XLA reuses a donated buffer's memory; eager torch has nothing to reuse,
-and no caller of the port keeps a wave's outputs dead), the executor's
-compile timings and jit-cache census (nothing compiles), and the sharded
-functions, ``ShardedWaveExecutor`` and their ``_pad_rows`` (multi-device,
-ROADMAP A6).
+and no caller of the port keeps a wave's outputs dead), and the
+executor's jit-cache census (nothing compiles).
 """
 
 from __future__ import annotations
@@ -43,13 +51,13 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..snapshot.lazy import tree_index
+from ..snapshot.lazy import LobbyShards, tree_index
 from ..telemetry.flight import flight_recorder
 from ..telemetry.metrics import LATENCY_MS_BUCKETS, registry
 from ..utils import compile_guard, staging
 from ..utils.staging import StagingQueue
-from ..utils.tree import tree_map
-from .packing import PackedWave, unpack_seq, wave_n_real, wave_starts
+from ..utils.tree import tree_flatten, tree_map
+from .packing import PackedWave, pack_prefix, unpack_seq, wave_n_real, wave_starts
 from .resim import _as_input, resim_lanes
 
 _CANONICAL_REFUSAL = (
@@ -369,6 +377,301 @@ class BucketedWaveExecutor:
             "packed_upload_bytes": self.packed_upload_bytes,
             "compile_ms": dict(self.compile_ms),
         }
+
+
+# -- the lobby-sharded many-worlds executor -----------------------------------
+
+
+def _shard_calls(fn, worlds: LobbyShards, *per_shard):
+    """``fn`` on every shard's block, each with its own arguments, all
+    launched before anything waits (eager launches never wait); the
+    outputs as one :class:`LobbyShards` each."""
+    outs = [fn(w, *args) for w, *args in zip(worlds.parts, *per_shard)]
+    return tuple(LobbyShards([o[j] for o in outs], worlds.lanes) for j in range(3))
+
+
+def _lane_checks(fn):
+    """A flat-checks lane program whose checksums come back ``[L, k, 2]``,
+    so a shard's rows stay in lobby order."""
+
+    def call(worlds, *args):
+        finals, stacked, checks = fn(worlds, *args)
+        return finals, stacked, checks.view(-1, stacked.alive.shape[1], 2)
+
+    return call
+
+
+def make_sharded_padded_fn(app, k: int, mesh):
+    """The ``n_real``-masked wave over a lobby mesh: :func:`make_batched_padded_fn`
+    on every shard's contiguous block of lanes, no collectives (lobbies
+    never communicate; each shard's checksum fold runs on its own lanes).
+    ``fn(worlds, inputs, status, starts, n_real)`` where each argument but
+    ``worlds`` (a :class:`LobbyShards`) is a list with one entry per
+    shard; returns ``(finals, stacked, checks)`` as :class:`LobbyShards`,
+    the checks ``[L, k, 2]`` per shard."""
+    _refuse_canonical(app)
+    lane = _lane_checks(make_batched_padded_fn(app, k))
+
+    def fn(worlds, inputs, status, starts, n_real):
+        return _shard_calls(lane, worlds, inputs, status, starts, n_real)
+
+    return fn
+
+
+def make_sharded_exact_fn(app, k: int, mesh):
+    """Exact-depth :func:`make_sharded_padded_fn` (every lane advances
+    ``k``): ``fn(worlds, inputs, status, starts)``, per-shard lists."""
+    _refuse_canonical(app)
+    lane = _lane_checks(make_batched_exact_fn(app, k))
+
+    def fn(worlds, inputs, status, starts):
+        return _shard_calls(lane, worlds, inputs, status, starts)
+
+    return fn
+
+
+def make_sharded_packed_padded_fn(app, k: int, mesh):
+    """Packed :func:`make_sharded_padded_fn`: ``fn(worlds, packed)`` with
+    one :class:`~.packing.PackedWave` per shard (each shard reads its
+    lanes' clocks from its own block's prefixes)."""
+    _refuse_canonical(app)
+    lane = _lane_checks(make_batched_packed_padded_fn(app, k))
+
+    def fn(worlds, packed):
+        return _shard_calls(lane, worlds, packed)
+
+    return fn
+
+
+def make_sharded_packed_exact_fn(app, k: int, mesh):
+    """Packed :func:`make_sharded_exact_fn`: ``fn(worlds, packed)``, one
+    :class:`~.packing.PackedWave` per shard."""
+    _refuse_canonical(app)
+    lane = _lane_checks(make_batched_packed_exact_fn(app, k))
+
+    def fn(worlds, packed):
+        return _shard_calls(lane, worlds, packed)
+
+    return fn
+
+
+_SHARDED_BUILDERS = {
+    "exact": make_sharded_exact_fn,
+    "padded": make_sharded_padded_fn,
+    "packed_exact": make_sharded_packed_exact_fn,
+    "packed_padded": make_sharded_packed_padded_fn,
+}
+
+
+class ShardedWaveExecutor(BucketedWaveExecutor):
+    """:class:`BucketedWaveExecutor` whose waves split the lobby axis over
+    a lobby mesh: the many-lobbies-across-devices executor.
+
+    Same bucket/kind cache and :meth:`run_wave` contract as the parent;
+    the differences:
+
+    - programs come from :func:`make_sharded_padded_fn` and its siblings:
+      shard ``d`` of ``D`` runs the parent's lane program on its
+      contiguous ``M_pad / D`` block of lobby lanes, on its own device;
+    - the worlds may be a :class:`~..snapshot.lazy.LobbyShards` (the
+      runner's resident world) or one ``[M, ...]`` tree, which is split
+      into blocks first; the outputs are :class:`LobbyShards` and the
+      checksums a :class:`LobbyShards` of ``[L, bucket, 2]`` blocks, whose
+      rows in lobby order are row ``b * bucket + i``
+      (:class:`~..snapshot.lazy.BatchChecks` reads them that way);
+    - waves whose lobby count M is not divisible by D are padded to
+      ``M_pad = ceil(M / D) * D`` with idle lanes (``n_real = 0``, masked
+      out by the padded program) and trimmed back to M (views, no device
+      work); the batched runner pre-pads its resident world instead;
+    - a packed wave stages into ONE pinned buffer and uploads each shard's
+      block to its device without a host wait;
+    - ``recycle_outputs`` is refused, as in the JAX package;
+    - the pre-bound ``sharded_wave_dispatches_total`` and
+      ``shard_program_compiles_total`` counters, and ``stats()
+      ["shard_devices"]``.
+
+    Bit equality: each shard runs the unsharded lane program on its lanes,
+    and lanes never communicate, so every lane equals the unsharded wave's
+    (``tests/test_torch_lobby_shard.py``, ``chip_smoke.py`` phase
+    ``sharded``)."""
+
+    def __init__(self, app, k_max: int, mesh, *, recycle_outputs: bool = False):
+        if recycle_outputs:
+            raise ValueError(
+                "ShardedWaveExecutor does not support recycle_outputs "
+                "(cross-wave donation of lobby-sharded buffers)")
+        super().__init__(app, k_max)
+        self.mesh = mesh
+        self.devices = list(mesh.devices)
+        self.n_devices = len(self.devices)
+        self._owner = "sharded"
+        reg = registry()
+        self._m_sharded_dispatches = reg.bind_counter(
+            "sharded_wave_dispatches_total",
+            "wave dispatches through the lobby-sharded executor")
+        self._m_shard_compiles = reg.bind_counter(
+            "shard_program_compiles_total",
+            "lobby-sharded wave programs built (kind x bucket)")
+
+    def pad_lobbies(self, m: int) -> int:
+        """Smallest multiple of the device count >= ``m``."""
+        d = self.n_devices
+        return -(-m // d) * d
+
+    def _get_fn(self, kind: str, bucket: int):
+        fn = self._fns.get((kind, bucket))
+        if fn is None:
+            if kind not in _SHARDED_BUILDERS:  # pragma: no cover
+                raise ValueError(f"sharded executor has no {kind!r} programs")
+            fn = self._fns[(kind, bucket)] = _SHARDED_BUILDERS[kind](
+                self.app, bucket, self.mesh)
+            self.compile_count += 1
+            self._m_compiles.inc()
+            self._m_shard_compiles.inc()
+        return fn
+
+    def _split(self, worlds, m_pad: int) -> LobbyShards:
+        """The worlds as ``D`` blocks of ``m_pad / D`` lanes on their
+        devices (a :class:`LobbyShards` of that layout passes through)."""
+        lanes = m_pad // self.n_devices
+        if isinstance(worlds, LobbyShards):
+            if worlds.lanes != lanes or len(worlds) != m_pad:
+                raise ValueError(f"the resident shards hold {len(worlds)} lobbies in "
+                                 f"blocks of {worlds.lanes}, the wave {m_pad} in {lanes}")
+            return worlds
+        from ..parallel.mesh import shard_lobby_worlds
+
+        m = tree_flatten(worlds)[0].shape[0]
+        if m_pad > m:
+            worlds = _pad_rows(worlds, m_pad - m)
+        return shard_lobby_worlds(self.mesh, worlds)
+
+    def _upload_blocks(self, name: str, host: np.ndarray, lanes: int) -> List[torch.Tensor]:
+        """``host`` (``[M_pad, ...]``) staged once, each shard's block sent
+        to its device: one pinned buffer, one non-blocking copy per shard."""
+        host = np.asarray(host)
+        dev0 = self.devices[0]
+        if dev0.type == "cpu":
+            return [torch.from_numpy(np.array(host[d * lanes:(d + 1) * lanes])).to(dev)
+                    for d, dev in enumerate(self.devices)]
+        key = (name, host.shape, host.dtype.str)
+        stage = self._stages.get(key)
+        if stage is None:
+            stage = self._stages[key] = StagingQueue(
+                lambda: np.zeros(host.shape, host.dtype), device=dev0)
+        buf = stage.acquire()
+        buf[...] = host
+        return [stage.commit(buf[d * lanes:(d + 1) * lanes], dev)
+                for d, dev in enumerate(self.devices)]
+
+    def _plan_sharded(self, ks):
+        ks, bucket, exact = self._plan(ks)
+        self._m_sharded_dispatches.inc()
+        return ks, bucket, exact
+
+    def run_wave(self, worlds, inputs, status, starts, ks):
+        """Dispatch one lobby-sharded wave (the parent's contract: returns
+        ``(bucket, finals, stacked, checks)``, the checks' rows in lobby
+        order at ``b * bucket + i`` over the CALLER's M lobbies).  Pads M
+        to a device-count multiple when needed; padded lanes ride the
+        masked program at ``n_real = 0`` and are trimmed from the
+        outputs."""
+        ks = [int(k) for k in ks]
+        m = len(ks)
+        m_pad = self.pad_lobbies(m)
+        pad = m_pad - m
+        inputs, status = np.asarray(inputs), np.asarray(status)
+        starts = np.asarray(starts, np.int32)
+        if pad:
+            inputs = np.concatenate([inputs, np.repeat(inputs[-1:], pad, axis=0)])
+            status = np.concatenate([status, np.repeat(status[-1:], pad, axis=0)])
+            starts = np.concatenate([starts, np.zeros((pad,), np.int32)])
+            ks = ks + [0] * pad
+        ks, bucket, exact = self._plan_sharded(ks)
+        shards = self._split(worlds, m_pad)
+        lanes = shards.lanes
+        inp = self._upload_blocks("inputs", np.ascontiguousarray(inputs[:, :bucket]), lanes)
+        st = self._upload_blocks("status", np.ascontiguousarray(status[:, :bucket]), lanes)
+        sts = self._upload_blocks("starts", starts, lanes)
+        self._note_uploads(3)
+        if exact:
+            finals, stacked, checks = self._dispatch("exact", bucket, shards, inp, st, sts)
+        else:
+            n_real = [ks[d * lanes:(d + 1) * lanes] for d in range(self.n_devices)]
+            finals, stacked, checks = self._dispatch("padded", bucket, shards, inp, st, sts,
+                                                     n_real)
+        if pad:
+            finals, stacked, checks = self._trim_wave(finals, stacked, checks, m)
+        return bucket, finals, stacked, checks
+
+    def run_wave_packed(self, worlds, packed, ks):
+        """Packed lobby-sharded wave (the parent's :meth:`run_wave_packed`
+        contract).  Padded lanes get a zeroed prefix (``n_real = 0``) in
+        the same staging buffer, so the wave stays one staged buffer."""
+        ks = [int(k) for k in ks]
+        m = len(ks)
+        m_pad = self.pad_lobbies(m)
+        pad = m_pad - m
+        if pad:
+            pad_block = np.repeat(packed[-1:], pad, axis=0)
+            for r in range(pad):
+                pack_prefix(pad_block[r], 0, 0)
+            packed = np.concatenate([packed, pad_block])
+            ks = ks + [0] * pad
+        ks, bucket, exact = self._plan_sharded(ks)
+        shards = self._split(worlds, m_pad)
+        lanes = shards.lanes
+        rows = self._upload_blocks("packed", np.ascontiguousarray(packed[:, :bucket + 1]),
+                                   lanes)
+        self._note_uploads(1, sum(r.numel() for r in rows))
+        waves = [PackedWave(r, tuple(ks[d * lanes:(d + 1) * lanes]))
+                 for d, r in enumerate(rows)]
+        kind = "packed_exact" if exact else "packed_padded"
+        finals, stacked, checks = self._dispatch(kind, bucket, shards, waves)
+        if pad:
+            finals, stacked, checks = self._trim_wave(finals, stacked, checks, m)
+        return bucket, finals, stacked, checks
+
+    def _trim_wave(self, finals, stacked, checks, m):
+        """Drop the padded lobby rows from a wave's outputs (views of the
+        shards' leading rows; no device work)."""
+        return finals.trim(m), stacked.trim(m), checks.trim(m)
+
+    def harvest_shards(self, outputs) -> dict:
+        """Wait until a wave's outputs have retired on every shard's device
+        and report the per-shard layout: shard count, shards touched and
+        buffers per shard (keyed by the mesh's shard names, which tell
+        logical shards of one card apart).  A flush point for measurement:
+        never call it from the steady-state dispatch path."""
+        names = self.mesh.shard_names()
+        per_dev: Dict[str, int] = {}
+        for out in outputs if isinstance(outputs, (tuple, list)) else (outputs,):
+            if not isinstance(out, LobbyShards):
+                continue
+            for d, part in enumerate(out.parts):
+                leaves = [a for a in tree_flatten(part) if isinstance(a, torch.Tensor)]
+                if leaves and leaves[0].device.type == "cuda":
+                    torch.cuda.synchronize(leaves[0].device)
+                per_dev[names[d]] = per_dev.get(names[d], 0) + len(leaves)
+        return {
+            "n_devices": self.n_devices,
+            "devices_touched": len(per_dev),
+            "buffers_per_device": per_dev,
+        }
+
+    def stats(self) -> dict:
+        """Parent counters plus ``shard_devices`` (the mesh's shard count)."""
+        out = super().stats()
+        out["shard_devices"] = self.n_devices
+        return out
+
+
+def _pad_rows(tree, pad: int):
+    """Extend every leaf's leading (lobby) axis by ``pad`` rows repeating
+    row 0 (one ``cat`` per leaf).  The pad lanes only ever run masked
+    (``n_real = 0``), so their content is irrelevant; repeating a real row
+    keeps the arithmetic finite."""
+    return tree_map(lambda a: torch.cat([a, a[:1].expand(pad, *a.shape[1:])]), tree)
 
 
 class DraftWaveScheduler:

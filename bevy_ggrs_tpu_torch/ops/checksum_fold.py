@@ -65,6 +65,12 @@ BLOCKS_PER_SM = 4
 #: its replays itself, where it launches the graph.
 launches = 0
 
+#: The split pass's wrapper calls that launched its kernels, counted as
+#: :data:`launches` is: :func:`checksum_fold_partial` (fold and slot
+#: sums) and :func:`checksum_fold_finalize`.
+partial_launches = 0
+finalize_launches = 0
+
 _lib = None
 
 
@@ -107,6 +113,59 @@ def _fold_rows(lanes: torch.Tensor, seed: int) -> torch.Tensor:
     return fmix32(h ^ n_lanes)
 
 
+def checksum_fold_partial_plain(
+    lanes: Sequence[torch.Tensor],
+    has: Sequence[torch.Tensor],
+    ids: torch.Tensor,
+    alive: torch.Tensor,
+    pending: torch.Tensor,
+    tags: Sequence[Tuple[int, int]],
+) -> torch.Tensor:
+    """Plain torch version of the split pass's first half: the slot sums
+    ``[k, 2C + 1]`` (u32 in int64) of these rows, slot ``2c + s`` the
+    wrapping sum of component c's kept row hashes under seed s, slot
+    ``2C`` the active count.  Slots of row blocks add (mod 2**32) to the
+    slots of the whole (see :func:`checksum_fold_partial`)."""
+    k = ids.shape[0]
+    active = alive & ~pending
+    ids64 = ids.to(torch.int64) & MASK32
+    out = torch.empty((k, 2 * len(lanes) + 1), dtype=torch.int64, device=ids.device)
+    for c, (ln, hs, tag) in enumerate(zip(lanes, has, tags)):
+        ln64 = ln.to(torch.int64) & MASK32
+        keep = active & hs
+        for s in (0, 1):
+            h = fmix32(mix32(_fold_rows(ln64, tag[s]), ids64))
+            out[:, 2 * c + s] = torch.where(keep, h, 0).sum(-1) & MASK32
+    out[:, 2 * len(lanes)] = active.sum(-1).to(torch.int64) & MASK32
+    return out
+
+
+def checksum_fold_finalize_plain(
+    slots: torch.Tensor,
+    tags: Sequence[Tuple[int, int]],
+    next_id: torch.Tensor,
+    entity_tags: Tuple[int, int],
+) -> torch.Tensor:
+    """Plain torch version of the split pass's second half: ``[k, 1 + C,
+    2]`` from the slot sums ``[k, 2C + 1]`` (each taken mod 2**32)."""
+    k = slots.shape[0]
+    n_comps = len(tags)
+    slots = slots & MASK32
+    out = torch.empty((k, 1 + n_comps, 2), dtype=torch.int64, device=slots.device)
+    for c, tag in enumerate(tags):
+        for s in (0, 1):
+            out[:, 1 + c, s] = fmix32(slots[:, 2 * c + s] ^ tag[s])
+    count = slots[:, 2 * n_comps]
+    next64 = next_id.to(torch.int64) & MASK32
+    for s in (0, 1):
+        h = torch.full((k,), entity_tags[s], dtype=torch.int64, device=slots.device)
+        h = fmix32(mix32(mix32(h, count), next64))
+        for c in range(n_comps):
+            h = h ^ out[:, 1 + c, s]
+        out[:, 0, s] = h
+    return out
+
+
 def checksum_fold_plain(
     lanes: Sequence[torch.Tensor],
     has: Sequence[torch.Tensor],
@@ -124,7 +183,9 @@ def checksum_fold_plain(
     ``lanes[c]`` is int32 ``[k, N, L_c]`` (u32 bit patterns), ``has[c]``,
     ``alive`` and ``pending`` are bool ``[k, N]``, ``ids`` int32 ``[k, N]``,
     ``next_id`` int32 ``[k]``, ``tags[c]`` the two seeds' type tags and
-    ``entity_tags`` the two seeds' entity tags."""
+    ``entity_tags`` the two seeds' entity tags.  Its arithmetic is the
+    split pass's two halves (:func:`checksum_fold_partial_plain`, then
+    :func:`checksum_fold_finalize_plain`) in one pass."""
     k = ids.shape[0]
     active = alive & ~pending
     ids64 = ids.to(torch.int64) & MASK32
@@ -217,12 +278,15 @@ def pack_params(
 ) -> List[FoldParams]:
     """The parameter blocks of one pass, one per chunk of ``MAX_COMPS``
     components in the given order (at least one, for the entity part).
-    ``partials`` is the address of the partial-sum scratch."""
+    ``partials`` is the address of the partial-sum scratch.  The split
+    pass's first half has no ``next_id`` (None) and writes its slot sums
+    to ``out``."""
     k, n = ids.shape
     n_comps = len(lanes)
     comps = [(ln.data_ptr(), hs.data_ptr(), ln.shape[2], t0 & MASK32, t1 & MASK32, 0)
              for ln, hs, (t0, t1) in zip(lanes, has, tags)]
-    tail = (ids.data_ptr(), alive.data_ptr(), pending.data_ptr(), next_id.data_ptr(),
+    tail = (ids.data_ptr(), alive.data_ptr(), pending.data_ptr(),
+            0 if next_id is None else next_id.data_ptr(),
             partials, out.data_ptr(), n, entity_tags[0] & MASK32, entity_tags[1] & MASK32,
             k)
     chunks = []
@@ -270,10 +334,12 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        lib.checksum_fold_launch.argtypes = [
-            ctypes.c_int, ctypes.POINTER(FoldParams), ctypes.c_void_p,
-        ]
-        lib.checksum_fold_launch.restype = ctypes.c_int
+        for fn in ("checksum_fold_launch", "checksum_fold_partial_launch",
+                   "checksum_fold_finalize_launch"):
+            getattr(lib, fn).argtypes = [
+                ctypes.c_int, ctypes.POINTER(FoldParams), ctypes.c_void_p,
+            ]
+            getattr(lib, fn).restype = ctypes.c_int
         for fn in ("checksum_fold_max_comps", "checksum_fold_threads",
                    "checksum_fold_params_size"):
             getattr(lib, fn).restype = ctypes.c_int
@@ -298,7 +364,8 @@ def _check_inputs(lanes, has, ids, alive, pending, tags, next_id, entity_tags) -
                         ("pending", pending, torch.bool)):
         if t.dtype != dt or t.shape != kn or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} [{k}, {n}] tensor")
-    if next_id.dtype != torch.int32 or next_id.shape != (k,) or not next_id.is_contiguous():
+    if next_id is not None and (next_id.dtype != torch.int32 or next_id.shape != (k,)
+                                or not next_id.is_contiguous()):
         raise ValueError(f"next_id must be a contiguous {torch.int32} [{k}] tensor")
     for ln in lanes:
         if ln.dtype != torch.int32 or ln.dim() != 3 or ln.shape[:2] != kn \
@@ -308,7 +375,8 @@ def _check_inputs(lanes, has, ids, alive, pending, tags, next_id, entity_tags) -
         if hs.dtype != torch.bool or hs.shape != kn or not hs.is_contiguous():
             raise ValueError(f"has must be contiguous bool [{k}, {n}] tensors")
     dev = ids.device
-    if any(t.device != dev for t in (*lanes, *has, alive, pending, next_id)):
+    if any(t.device != dev for t in (*lanes, *has, alive, pending)) or (
+            next_id is not None and next_id.device != dev):
         raise ValueError("all checksum_fold inputs must be on one device")
 
 
@@ -357,4 +425,101 @@ def checksum_fold(
         if err != 0:
             raise RuntimeError(f"checksum_fold kernel launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+def _launch(entry: str, dev: torch.device, chunks: List[FoldParams]) -> None:
+    lib = _library()
+    device = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    for p in chunks:
+        err = getattr(lib, entry)(device, ctypes.byref(p), stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} failed: CUDA error {err}")
+
+
+def checksum_fold_partial(
+    lanes: List[torch.Tensor],
+    has: List[torch.Tensor],
+    ids: torch.Tensor,
+    alive: torch.Tensor,
+    pending: torch.Tensor,
+    tags: Sequence[Tuple[int, int]],
+) -> torch.Tensor:
+    """The split pass's first half: the slot sums ``[k, 2C + 1]`` (u32 in
+    int64) of these rows, as :func:`checksum_fold_partial_plain`.
+
+    For a world whose entity axis is split over ranks: each rank folds its
+    own rows, the ranks all-reduce the slots (an int64 sum, then ``&
+    MASK32``: exact for fewer than 2**31 ranks), and
+    :func:`checksum_fold_finalize` finishes from the sums; the result is
+    the one-call pass's bit for bit.  Launches the fold kernel and a slot
+    reduction per chunk of ``MAX_COMPS`` components for CUDA tensors; the
+    plain version runs only for CPU tensors."""
+    global partial_launches
+    _check_inputs(lanes, has, ids, alive, pending, tags, None, (0, 0))
+    dev = ids.device
+    if dev.type == "cpu":
+        return checksum_fold_partial_plain(lanes, has, ids, alive, pending, tags)
+    if dev.type != "cuda":
+        raise ValueError(f"checksum_fold_partial has no kernel for device {dev}")
+    k, n = ids.shape
+    if k > 65535:
+        raise ValueError(f"checksum_fold_partial takes at most 65535 frames, got {k}")
+    n_comps = len(lanes)
+    slots = torch.zeros((k, 2 * n_comps + 1), dtype=torch.int64, device=dev)
+    if k == 0 or n == 0:
+        return slots
+    vec = vector_loads(n, [ids, alive, pending, *lanes, *has])
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks_x = grid_blocks(k, n, sm_count, vec)
+    scratch = torch.empty(-(-partial_words(k, n_comps, blocks_x) // 2), dtype=torch.int64,
+                          device=dev)
+    _launch("checksum_fold_partial_launch", dev,
+            pack_params(lanes, has, ids, alive, pending, tags, None, (0, 0), slots,
+                        scratch.data_ptr(), blocks_x, vec))
+    partial_launches += 1
+    return slots
+
+
+def checksum_fold_finalize(
+    slots: torch.Tensor,
+    tags: Sequence[Tuple[int, int]],
+    next_id: torch.Tensor,
+    entity_tags: Tuple[int, int],
+) -> torch.Tensor:
+    """The split pass's second half: ``[k, 1 + C, 2]`` from the slot sums
+    ``[k, 2C + 1]`` (int64, each taken mod 2**32), as
+    :func:`checksum_fold_finalize_plain`; one launch per chunk of
+    ``MAX_COMPS`` components for CUDA tensors."""
+    global finalize_launches
+    k = slots.shape[0]
+    n_comps = len(tags)
+    if slots.dtype != torch.int64 or slots.shape != (k, 2 * n_comps + 1) \
+            or not slots.is_contiguous():
+        raise ValueError(f"slots must be a contiguous int64 [{k}, {2 * n_comps + 1}] tensor")
+    if next_id.dtype != torch.int32 or next_id.shape != (k,) or not next_id.is_contiguous() \
+            or next_id.device != slots.device:
+        raise ValueError(f"next_id must be a contiguous int32 [{k}] tensor beside the slots")
+    dev = slots.device
+    if dev.type == "cpu":
+        return checksum_fold_finalize_plain(slots, tags, next_id, entity_tags)
+    if dev.type != "cuda":
+        raise ValueError(f"checksum_fold_finalize has no kernel for device {dev}")
+    if k > 65535:
+        raise ValueError(f"checksum_fold_finalize takes at most 65535 frames, got {k}")
+    out = torch.empty((k, 1 + n_comps, 2), dtype=torch.int64, device=dev)
+    if k == 0:
+        return out
+    chunks = []
+    for c0 in range(0, max(n_comps, 1), MAX_COMPS):
+        chunk = tags[c0:c0 + MAX_COMPS]
+        fields = [v for t0, t1 in chunk for v in (0, 0, 0, t0 & MASK32, t1 & MASK32, 0)]
+        fields += _NO_COMP * (MAX_COMPS - len(chunk))
+        fields += (0, 0, 0, next_id.data_ptr(), slots.data_ptr(), out.data_ptr(), 1,
+                   entity_tags[0] & MASK32, entity_tags[1] & MASK32, k,
+                   len(chunk), c0, n_comps, 1, 0)
+        chunks.append(FoldParams.from_buffer_copy(_PARAMS.pack(*fields)))
+    _launch("checksum_fold_finalize_launch", dev, chunks)
+    finalize_launches += 1
     return out

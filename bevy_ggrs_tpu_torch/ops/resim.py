@@ -81,6 +81,7 @@ import torch
 from ..snapshot.checksum import branch_checksums, world_checksums
 from ..snapshot.world import Registry, WorldState, despawn_confirmed
 from ..utils import staging, threefry
+from ..utils.device import is_dtensor
 from ..utils.frames import frame_add
 from ..utils.tree import tree_flatten, tree_map, tree_unflatten
 from .packing import PackedSpec, PackedUpload, unpack_seq
@@ -198,13 +199,52 @@ def _as_input(x: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+def _is_sharded(state: WorldState) -> bool:
+    """Whether the world is entity-sharded (DTensor leaves)."""
+    return is_dtensor(state.alive)
+
+
 def _empty_stack(state: WorldState, k: int) -> WorldState:
+    if _is_sharded(state):
+        return tree_map(lambda a: _empty_dtensor_stack(a, k), state)
     return tree_map(
         lambda a: torch.empty((k, *a.shape), dtype=a.dtype, device=a.device), state
     )
 
 
+def _empty_dtensor_stack(a, k: int):
+    """A ``[k, ...]`` stack for a DTensor leaf: each rank's local block,
+    wrapped with the leaf's placements shifted past the new frame axis."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = a.to_local()
+    stack = torch.empty((k, *local.shape), dtype=local.dtype, device=local.device)
+    placements = [Shard(p.dim + 1) if p.is_shard() else p for p in a.placements]
+    return DTensor.from_local(stack, a.device_mesh, placements, run_check=False)
+
+
+def _settle(state: WorldState) -> WorldState:
+    """An entity-sharded state with every pending sum resolved: a leaf a
+    step computed as a sum over the sharded rows (``spawn``'s count into
+    ``next_id``) is a ``Partial`` DTensor, reduced here to the replicated
+    value so the frame's stack and the next frame read the whole value."""
+    from torch.distributed.tensor import Replicate
+
+    def settle(a):
+        if any(p.is_partial() for p in a.placements):
+            return a.redistribute(a.device_mesh, [
+                Replicate() if p.is_partial() else p for p in a.placements])
+        return a
+
+    return tree_map(settle, state)
+
+
 def _write_frame(stacked: WorldState, i: int, state: WorldState) -> None:
+    if _is_sharded(state):
+        # DTensor's copy_ into a view refuses; the (settled) local blocks
+        # line up with the stack's
+        tree_map(lambda dst, src: dst.to_local()[i].copy_(src.to_local()), stacked, state)
+        return
     tree_map(lambda dst, src: dst[i].copy_(src), stacked, state)
 
 
@@ -229,11 +269,14 @@ def resim(
     status_seq = _as_input(status_seq, dev)
     k = inputs_seq.shape[0]
     stacked = _empty_stack(state, k)
+    sharded = _is_sharded(state)
     frame = int(start_frame)
     for i in range(k):
         frame = frame_add(frame, 1)
         state = advance(reg, step_fn, state, inputs_seq[i], status_seq[i],
                         frame, retention, fps, seed)
+        if sharded:
+            state = _settle(state)
         _write_frame(stacked, i, state)
     return state, stacked, world_checksums(reg, stacked)
 
@@ -259,12 +302,15 @@ def resim_padded(
     k = inputs_seq.shape[0]
     n_real = int(n_real)
     stacked = _empty_stack(state, k)
+    sharded = _is_sharded(state)
     frame = int(start_frame)
     for i in range(k):
         if i < n_real:
             frame = frame_add(frame, 1)
             state = advance(reg, step_fn, state, inputs_seq[i], status_seq[i],
                             frame, retention, fps, seed)
+            if sharded:
+                state = _settle(state)
         _write_frame(stacked, i, state)
     return state, stacked, world_checksums(reg, stacked)
 

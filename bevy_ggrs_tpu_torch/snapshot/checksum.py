@@ -18,6 +18,14 @@ CPU.
 Every function here that takes a ``stacked`` world expects a leading frame
 axis on every leaf (a resim's stacked output); the single-world functions
 add that axis and drop it again.
+
+A world whose entity axis is a DTensor split over ranks
+(``parallel/mesh.py``) takes the split pass: each rank folds its own rows
+to slot sums (:func:`..ops.checksum_fold.checksum_fold_partial`), the
+ranks all-reduce the sums over the mesh dims that split the rows, and
+:func:`..ops.checksum_fold.checksum_fold_finalize` finishes from them.
+Every slot is a wrapping u32 sum, so the checksums equal the one-device
+pass's bit for bit; they come back as a plain tensor, equal on every rank.
 """
 
 from __future__ import annotations
@@ -27,7 +35,16 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..ops.checksum_fold import MASK32, _fold_rows, checksum_fold, fmix32, mix32
+from ..ops.checksum_fold import (
+    MASK32,
+    _fold_rows,
+    checksum_fold,
+    checksum_fold_finalize,
+    checksum_fold_partial,
+    fmix32,
+    mix32,
+)
+from ..utils.device import is_dtensor
 from ..utils.tree import tree_leaves, tree_map
 from .world import Registry, WorldState
 
@@ -189,12 +206,39 @@ def world_checksums(reg: Registry, stacked: WorldState) -> torch.Tensor:
     checksummed component's part; a checksummed resource's part, where the
     registry has one, is XORed in with small tensor ops."""
     names = [n for n, s in reg.components.items() if s.checksum]
+    if is_dtensor(stacked.alive):
+        return _sharded_world_checksums(reg, stacked, names)
     out = checksum_fold(*fold_inputs(reg, stacked, names))[:, 0]
+    return _with_resources(reg, stacked, out)
+
+
+def _with_resources(reg: Registry, stacked: WorldState, out: torch.Tensor) -> torch.Tensor:
+    """``out`` with every checksummed resource's part XORed in."""
     for name, spec in reg.resources.items():
         if spec.checksum:
             out = out ^ torch.stack(
                 [_resource_parts(reg, stacked, name, seed) for seed in SEEDS], dim=-1)
     return out
+
+
+def _sharded_world_checksums(reg: Registry, stacked: WorldState, names) -> torch.Tensor:
+    """:func:`world_checksums` of an entity-sharded stack: the local rows'
+    slot sums, an all-reduce over every mesh dim that splits the rows,
+    and the finish from the sums (module docstring).  The resource parts
+    are computed from the replicated values, as on one device."""
+    import torch.distributed as dist
+
+    alive = stacked.alive
+    mesh = alive.device_mesh
+    local = tree_map(lambda a: a.to_local() if is_dtensor(a) else a, stacked)
+    args = fold_inputs(reg, local, names)
+    slots = checksum_fold_partial(*args[:6])
+    for dim, placement in enumerate(alive.placements):
+        if placement.is_shard():
+            dist.all_reduce(slots, op=dist.ReduceOp.SUM, group=mesh.get_group(dim))
+    slots = slots & MASK32
+    out = checksum_fold_finalize(slots, args[5], args[6], args[7])[:, 0]
+    return _with_resources(reg, local, out)
 
 
 def branch_checksums(reg: Registry, stacked_b: WorldState) -> torch.Tensor:

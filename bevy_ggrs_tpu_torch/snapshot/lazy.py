@@ -35,6 +35,13 @@ interval frame once it is confirmed.
   :meth:`LazySlice.materialize` a device clone that no longer pins the
   stacked buffer (the ring's memory guard).  ``i`` may be a
   ``(lobby, frame)`` pair into a wave's ``[M, k, ...]`` stack.
+- :class:`LobbyShards` is a per-shard value of the lobby axis (the
+  lobby-sharded executor's resident world and wave outputs): shard ``d``
+  holds lobbies ``d * lanes .. (d + 1) * lanes - 1`` as one tree on its
+  device.  A :class:`BatchChecks` over it starts one copy per shard and
+  assembles the host rows in lobby order; :class:`LazySlice`,
+  :func:`plan_row_gather` and :func:`fused_load_rows` map a lobby to its
+  (shard, row).
 
 The batched runner's tail (``batch_runner.py``): :func:`plan_row_gather`
 groups a wave's ``(target lane, LazySlice)`` rows by the stacked buffer
@@ -97,55 +104,71 @@ class ReadbackStats:
 
 class BatchChecks:
     """One resim's ``[k, 2]`` checksums, read back to the host once (see
-    module docstring)."""
+    module docstring).  ``dev`` may be a :class:`LobbyShards` of per-shard
+    ``[lanes, ..., 2]`` checksums (a lobby-sharded wave's): one copy
+    starts per shard, and the host rows are the shards' rows in lobby
+    order, flattened to ``[n, 2]`` (row ``b * bucket + i`` of a wave)."""
 
     _pending: "weakref.WeakSet[BatchChecks]" = weakref.WeakSet()
 
     __slots__ = ("_dev", "_host", "_started", "_pinned", "_event", "_stats",
                  "__weakref__")
 
-    def __init__(self, dev: torch.Tensor, stats: Optional[ReadbackStats] = None):
-        self._dev: Optional[torch.Tensor] = dev
+    def __init__(self, dev, stats: Optional[ReadbackStats] = None):
+        self._dev = dev
         self._host: Optional[List[List[int]]] = None
         self._started = False  # the copy was started (CPU rows: "landed")
-        self._pinned: Optional[torch.Tensor] = None
-        self._event = None
+        self._pinned: Optional[List[torch.Tensor]] = None
+        self._event: Optional[list] = None
         self._stats = stats if stats is not None else ReadbackStats()
         BatchChecks._pending.add(self)
 
-    def _adopt(self, rows: torch.Tensor) -> List[List[int]]:
-        self._host = rows.tolist()
+    def _parts(self) -> List[torch.Tensor]:
+        if isinstance(self._dev, LobbyShards):
+            return [p.reshape(-1, 2) for p in self._dev.parts]
+        return [self._dev]
+
+    def _adopt(self, parts: List[torch.Tensor]) -> List[List[int]]:
+        self._host = parts[0].tolist() if len(parts) == 1 else \
+            [row for p in parts for row in p.tolist()]
         self._dev = self._pinned = self._event = None
         BatchChecks._pending.discard(self)
         return self._host
 
     def start_async(self) -> None:
-        """Start the one non-blocking device->host copy of the rows (a
-        no-op once started or read; CPU rows need no copy)."""
+        """Start the non-blocking device->host copy of the rows, one per
+        shard (a no-op once started or read; CPU rows need no copy)."""
         if self._host is not None or self._started:
             return
         self._started = True
-        if self._dev.device.type != "cuda":
+        parts = self._parts()
+        if all(p.device.type != "cuda" for p in parts):
             return
-        self._pinned = torch.empty(self._dev.shape, dtype=self._dev.dtype,
-                                   pin_memory=True)
-        self._pinned.copy_(self._dev, non_blocking=True)
-        self._event = torch.cuda.Event()
-        self._event.record()
+        self._pinned, self._event = [], []
+        for p in parts:
+            pinned = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+            if p.device.type == "cuda":
+                pinned.copy_(p, non_blocking=True)  # on p's device's stream
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(p.device))
+                self._event.append(event)
+            else:
+                pinned.copy_(p)
+            self._pinned.append(pinned)
 
     def _landed(self) -> bool:
-        """True when the started copy has landed: reading the rows would
+        """True when the started copies have landed: reading the rows would
         not wait for the card.  A batch never started has not landed, so a
         read of it counts as forced, on the CPU too."""
         if not self._started:
             return False
-        return self._event is None or self._event.query()
+        return self._event is None or all(e.query() for e in self._event)
 
     def _harvest(self) -> List[List[int]]:
         self._stats.harvested += 1
         if _REG.enabled:
             _note_readback(harvested=1)
-        return self._adopt(self._pinned if self._event is not None else self._dev)
+        return self._adopt(self._pinned if self._event is not None else self._parts())
 
     def try_host(self) -> Optional[List[List[int]]]:
         """The ``[k, 2]`` rows if they can be had without waiting for the
@@ -175,8 +198,9 @@ class BatchChecks:
         notes the telemetry)."""
         self._stats.forced += 1
         if self._event is None:
-            return self._adopt(self._dev)
-        self._event.synchronize()
+            return self._adopt(self._parts())
+        for e in self._event:
+            e.synchronize()
         return self._adopt(self._pinned)
 
     def ref(self, i: int) -> "ChecksumRef":
@@ -287,9 +311,64 @@ def readback_queue() -> ReadbackQueue:
     return _readback_queue
 
 
+class LobbyShards:
+    """A per-shard value of the lobby axis: ``parts[d]`` is shard ``d``'s
+    tree, every leaf ``[rows_d, ...]`` on that shard's device, holding
+    lobbies ``d * lanes`` onward in order (contiguous blocks, the pad
+    lanes at the end).  Lobby ``b`` lives on shard ``b // lanes`` at local
+    row ``b % lanes`` (:meth:`locate`).  A trimmed value's last parts may
+    be shorter, or missing, and the lobby mapping stays the same."""
+
+    __slots__ = ("parts", "lanes")
+
+    def __init__(self, parts: Sequence, lanes: int):
+        self.parts = list(parts)
+        self.lanes = int(lanes)
+
+    def locate(self, b: int) -> Tuple[int, int]:
+        """``(shard, local row)`` of lobby ``b``."""
+        return divmod(int(b), self.lanes)
+
+    def rows(self, d: int) -> int:
+        """Lobbies held by shard ``d``."""
+        return tree_flatten(self.parts[d])[0].shape[0]
+
+    def __len__(self) -> int:
+        return sum(self.rows(d) for d in range(len(self.parts)))
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return [tree_flatten(p)[0].device for p in self.parts]
+
+    def map(self, fn: Callable) -> "LobbyShards":
+        """``fn`` over every shard's tree (a per-shard program)."""
+        return LobbyShards([fn(p) for p in self.parts], self.lanes)
+
+    def trim(self, m: int) -> "LobbyShards":
+        """The first ``m`` lobbies (views; no device work)."""
+        parts = []
+        for d, p in enumerate(self.parts):
+            keep = min(self.rows(d), m - d * self.lanes)
+            if keep <= 0:
+                break
+            parts.append(p if keep == self.rows(d) else tree_map(lambda a: a[:keep], p))
+        return LobbyShards(parts, self.lanes)
+
+    def gather(self, device=None):
+        """One tree of every lobby in order, on ``device`` (default: the
+        first shard's): a copy, for checks and tests, never the hot path."""
+        dev = self.devices[0] if device is None else torch.device(device)
+        return tree_map(lambda *xs: torch.cat([x.to(dev) for x in xs]), *self.parts)
+
+
 def tree_index(stacked, i):
     """``stacked``'s frame ``i`` (an int, or a ``(lobby, frame)`` pair):
-    every leaf's row, as views."""
+    every leaf's row, as views; on a :class:`LobbyShards` the lobby maps
+    to its shard and local row."""
+    if isinstance(stacked, LobbyShards):
+        b, rest = (i[0], i[1:]) if isinstance(i, tuple) else (i, ())
+        d, r = stacked.locate(b)
+        return tree_map(lambda a: a[(r, *rest)], stacked.parts[d])
     return tree_map(lambda a: a[i], stacked)
 
 
@@ -303,7 +382,8 @@ class LazySlice:
     stores these, and only the frame a rollback loads is sliced.  A live
     handle keeps the whole ``[k, ...]`` stacked buffer alive.  ``i`` may
     be a ``(lobby, frame)`` pair into a wave's ``[M, k, ...]`` stack, or a
-    lobby of the resident ``[M, ...]`` world."""
+    lobby of the resident ``[M, ...]`` world; either may be a
+    :class:`LobbyShards`."""
 
     __slots__ = ("_stacked", "_i")
 
@@ -337,17 +417,23 @@ def plan_row_gather(handles) -> Tuple[List[RowGroup], list]:
     frames, targets)`` in first-seen order, ``frames`` ``None`` where the
     handles index the buffer's leading axis only (a lobby of a resident
     world); ``fallback`` holds the ``(target, snapshot)`` pairs that are
-    not lazy slices, for the caller's counted slow path."""
+    not lazy slices, for the caller's counted slow path.  A handle into a
+    :class:`LobbyShards` groups by its shard, whose tree is the buffer and
+    whose local rows are the lanes."""
     by, order, fallback = {}, [], []
     for tgt, stored in handles:
         if not isinstance(stored, LazySlice):
             fallback.append((tgt, stored))
             continue
         lane, idx = stored._i if isinstance(stored._i, tuple) else (stored._i, None)
-        key = (id(stored._stacked), idx is None)
+        buf, shard = stored._stacked, None
+        if isinstance(buf, LobbyShards):
+            shard, lane = buf.locate(lane)
+            buf = buf.parts[shard]
+        key = (id(stored._stacked), shard, idx is None)
         g = by.get(key)
         if g is None:
-            g = by[key] = (stored._stacked, [], [], [])
+            g = by[key] = (buf, [], [], [])
             order.append(key)
         g[1].append(lane)
         g[2].append(idx)
@@ -356,60 +442,74 @@ def plan_row_gather(handles) -> Tuple[List[RowGroup], list]:
     for key in order:
         buf, lanes, idxs, tgts = by[key]
         groups.append((buf, np.asarray(lanes, np.int64),
-                       None if key[1] else np.asarray(idxs, np.int64),
+                       None if key[2] else np.asarray(idxs, np.int64),
                        np.asarray(tgts, np.int64)))
     return groups, fallback
 
 
 class RowIndexStager:
-    """The row indices of a fused gather, uploaded as ONE int64 buffer from
-    pinned staging (two buffers in turn, fenced by CUDA events), grown
-    geometrically.  On the CPU the indices are taken as they are."""
+    """The row indices of a fused gather, uploaded as ONE int64 buffer per
+    device from pinned staging (two buffers in turn, fenced by CUDA
+    events), grown geometrically.  On the CPU the indices are taken as
+    they are."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
-        self._stage: Optional[StagingQueue] = None
-        self._cap = 0
+        self._stages: dict = {}  # device -> (StagingQueue, capacity)
         self.uploads = 0
 
     @property
     def deferred_blocks(self) -> int:
-        return self._stage.deferred_blocks if self._stage is not None else 0
+        return sum(st.deferred_blocks for st, _cap in self._stages.values())
 
     @property
     def landed_free(self) -> int:
-        return self._stage.landed_free if self._stage is not None else 0
+        return sum(st.landed_free for st, _cap in self._stages.values())
 
-    def upload(self, arrays: Sequence[np.ndarray]) -> List[torch.Tensor]:
-        """``arrays`` as int64 tensors on the device, split from one
-        upload."""
+    def upload(self, arrays: Sequence[np.ndarray], device=None) -> List[torch.Tensor]:
+        """``arrays`` as int64 tensors on ``device`` (default: the
+        stager's), split from one upload."""
+        dev = self.device if device is None else torch.device(device)
         sizes = [len(a) for a in arrays]
         total = sum(sizes)
-        if self.device.type == "cpu":
+        if dev.type == "cpu":
             flat = torch.from_numpy(np.concatenate(arrays).astype(np.int64))
         else:
-            if self._stage is None or self._cap < total:
-                cap = self._cap = max(total, 2 * self._cap, 64)
-                self._stage = StagingQueue(lambda: np.zeros(cap, np.int64),
-                                           device=self.device)
-            buf = self._stage.acquire()
+            stage, cap = self._stages.get(dev, (None, 0))
+            if stage is None or cap < total:
+                cap = max(total, 2 * cap, 64)
+                stage = StagingQueue(lambda: np.zeros(cap, np.int64), device=dev)
+                self._stages[dev] = (stage, cap)
+            buf = stage.acquire()
             buf[:total] = np.concatenate(arrays)
-            flat = self._stage.commit(buf[:total])
+            flat = stage.commit(buf[:total])
             self.uploads += 1
         return list(torch.split(flat, sizes))
 
 
+def _upload_by_device(stager: RowIndexStager, jobs) -> list:
+    """``jobs`` of ``(device, [arrays])``: the arrays on their devices, one
+    upload per distinct device, in the jobs' order."""
+    by_dev: dict = {}
+    for dev, arrays in jobs:
+        by_dev.setdefault(dev, []).extend(arrays)
+    got = {dev: iter(stager.upload(arrays, dev)) for dev, arrays in by_dev.items()}
+    return [[next(got[dev]) for _ in arrays] for dev, arrays in jobs]
+
+
 def _group_indices(groups: Sequence[RowGroup], stager: RowIndexStager):
-    """Each group's ``(lanes, frames | None, targets)`` on the device."""
-    arrays = []
-    for _buf, lanes, idxs, tgts in groups:
-        arrays += [lanes, tgts] + ([] if idxs is None else [idxs])
-    it = iter(stager.upload(arrays))
+    """Each group's ``(lanes, frames | None, targets)`` on its buffer's
+    device."""
+    jobs = [(_tree_device(buf), [lanes, tgts] + ([] if idxs is None else [idxs]))
+            for buf, lanes, idxs, tgts in groups]
     out = []
-    for _buf, _lanes, idxs, _tgts in groups:
-        lanes, tgts = next(it), next(it)
-        out.append((lanes, None if idxs is None else next(it), tgts))
+    for (_buf, _l, idxs, _t), got in zip(groups, _upload_by_device(stager, jobs)):
+        out.append((got[0], None if idxs is None else got[2], got[1]))
     return out
+
+
+def _tree_device(tree) -> torch.device:
+    return tree_flatten(tree)[0].device
 
 
 def _gather(buf, lanes: torch.Tensor, idxs: Optional[torch.Tensor]):
@@ -437,11 +537,40 @@ def fused_load_rows(worlds, groups: Sequence[RowGroup], stager: RowIndexStager,
     mixed-source batched load.  One upload of indices, then per group and
     leaf one gather and one out-of-place ``index_copy`` (no storage of
     ``worlds`` is written).  ``transform`` (the strategy's ``load_state``)
-    runs over the gathered rows first."""
+    runs over the gathered rows first.  On a :class:`LobbyShards` world
+    the targets map to their shards: one upload per device, and per group
+    and target shard one gather and one ``index_copy`` into that shard."""
+    if isinstance(worlds, LobbyShards):
+        return _fused_load_shards(worlds, groups, stager, transform)
     for (buf, *_), (lanes, idxs, tgts) in zip(groups, _group_indices(groups, stager)):
         rows = _map_rows(transform, _gather(buf, lanes, idxs))
         worlds = tree_map(lambda w, r, t=tgts: w.index_copy(0, t, r), worlds, rows)
     return worlds
+
+
+def _fused_load_shards(worlds: LobbyShards, groups: Sequence[RowGroup],
+                       stager: RowIndexStager, transform: Optional[Callable]):
+    """:func:`fused_load_rows` into a per-shard world: each group splits by
+    its targets' shards (a lobby's own rows lie on its own shard, so a
+    group from a shard's buffer targets that shard alone)."""
+    jobs, plans = [], []
+    for buf, lanes, idxs, tgts in groups:
+        shard_of = tgts // worlds.lanes
+        for d in dict.fromkeys(shard_of.tolist()):
+            sel = shard_of == d
+            arrays = [lanes[sel], tgts[sel] - d * worlds.lanes]
+            if idxs is not None:
+                arrays.append(idxs[sel])
+            jobs.append((_tree_device(buf), arrays))
+            plans.append((buf, d, idxs is not None))
+    parts = list(worlds.parts)
+    devices = worlds.devices
+    for (buf, d, framed), got in zip(plans, _upload_by_device(stager, jobs)):
+        rows = _map_rows(transform, _gather(buf, got[0], got[2] if framed else None))
+        dev = devices[d]
+        tgts = got[1].to(dev)
+        parts[d] = tree_map(lambda w, r: w.index_copy(0, tgts, r.to(dev)), parts[d], rows)
+    return LobbyShards(parts, worlds.lanes)
 
 
 def fused_gather_rows(groups: Sequence[RowGroup], stager: RowIndexStager,
@@ -449,8 +578,11 @@ def fused_gather_rows(groups: Sequence[RowGroup], stager: RowIndexStager,
     """Gather every group's rows into one fresh ``[n, ...]`` stack, in the
     groups' concatenated target order, and map ``transform`` (the
     strategy's ``store_state``) over it: the batched runner's non-identity
-    saves, one stack per wave."""
+    saves, one stack per wave.  Rows from shards on other devices are
+    moved to the first group's device."""
     parts = [_gather(buf, lanes, idxs)
              for (buf, *_), (lanes, idxs, _t) in zip(groups, _group_indices(groups, stager))]
-    rows = parts[0] if len(parts) == 1 else tree_map(lambda *xs: torch.cat(xs), *parts)
+    dev = _tree_device(parts[0])
+    rows = parts[0] if len(parts) == 1 else tree_map(
+        lambda *xs: torch.cat([x.to(dev) for x in xs]), *parts)
     return _map_rows(transform, rows)

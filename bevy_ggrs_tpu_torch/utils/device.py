@@ -7,6 +7,7 @@ tests do (``device="cpu"``)."""
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Union
 
 import torch
@@ -26,3 +27,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "on the CPU"
         )
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (an entity-sharded world's leaf,
+    ``parallel/mesh.py``), without importing DTensor's machinery: a
+    process that never loaded ``torch.distributed.tensor`` holds none."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)

@@ -36,3 +36,15 @@ def apply_platform_env() -> str:
             f"platform {raw!r} is not one the port runs on: {sorted(_DEVICES)}"
         )
     return str(resolve_device(_DEVICES[name]))
+
+
+def device_label(device) -> str:
+    """``device`` with the card's name, for a CLI's first line
+    (``cuda:0 (NVIDIA H100 80GB HBM3)``, or ``cpu``)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return str(dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return f"cuda:{index} ({torch.cuda.get_device_name(index)})"

@@ -201,6 +201,7 @@ class StagingBuffer:
             self.host = buf
             self.stream = None
             self._event = None
+        self._lanes: dict = {}  # other devices' (stream, event)
         self._inflight = False
         self.deferred_blocks = 0  # acquires that waited on the last upload
         self.landed_free = 0  # acquires whose last upload had landed
@@ -211,36 +212,49 @@ class StagingBuffer:
 
     def acquire(self) -> np.ndarray:
         """The host buffer, safe to rewrite: waits for its last upload iff
-        that has not landed yet."""
+        that has not landed yet (every device's, after uploads of blocks to
+        several devices)."""
         if self._inflight:
-            if self._event is None or self._event.query():
+            events = [self._event] + [ev for _st, ev in self._lanes.values()]
+            if self._event is None or all(ev.query() for ev in events):
                 self.landed_free += 1
             else:
                 self.deferred_blocks += 1
-                self._event.synchronize()
+                for ev in events:
+                    ev.synchronize()
             self._inflight = False
         # either branch proved the old upload landed: clear its stamp so the
         # caller's rewrite passes the sanitizer
         _SANITIZER.land(self.host)
         return self.host
 
-    def commit(self, view: np.ndarray) -> torch.Tensor:
+    def commit(self, view: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
         """Start the upload of ``view`` (a view of :attr:`host` returned by
         the matching :meth:`acquire`) and return the device tensor; the
-        compute stream is ordered after the copy, the host is not."""
+        compute stream is ordered after the copy, the host is not.
+        ``device`` sends it to another card than the buffer's (each shard
+        of a lobby-sharded wave takes its block of one pinned buffer, on a
+        stream of its own device)."""
         # the upload's device copy stays resident until the dispatch reads it
         devmem.note("staging/last_commit", view.nbytes)
         _SANITIZER.begin(view, "StagingBuffer.commit")
         self._inflight = True
         src = torch.from_numpy(view)
-        if not self.cuda:
+        dev_ = self.device if device is None else torch.device(device)
+        if dev_.type != "cuda":
             return src.clone()
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self.stream):
-            dev = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        if dev_ == self.device:
+            stream, event = self.stream, self._event
+        else:
+            if dev_ not in self._lanes:
+                self._lanes[dev_] = (torch.cuda.Stream(dev_), torch.cuda.Event())
+            stream, event = self._lanes[dev_]
+        compute = torch.cuda.current_stream(dev_)
+        with torch.cuda.stream(stream):
+            dev = torch.empty(src.shape, dtype=src.dtype, device=dev_)
             dev.copy_(src, non_blocking=True)
-            self._event.record(self.stream)
-        compute.wait_event(self._event)
+            event.record(stream)
+        compute.wait_event(event)
         dev.record_stream(compute)
         return dev
 
@@ -278,8 +292,9 @@ class StagingQueue:
         self._idx = (self._idx + 1) % len(self.buffers)
         return self.buffers[self._idx].acquire()
 
-    def commit(self, view: np.ndarray) -> torch.Tensor:
+    def commit(self, view: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
         """Start the upload of ``view`` (a view of the buffer returned by
-        the matching :meth:`acquire`); returns the device tensor."""
-        return self.buffers[self._idx].commit(view)
+        the matching :meth:`acquire`) to the queue's device, or to
+        ``device``; returns the device tensor."""
+        return self.buffers[self._idx].commit(view, device)
 

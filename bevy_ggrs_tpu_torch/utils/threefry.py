@@ -44,8 +44,20 @@ Word = Union[int, torch.Tensor]
 Key = Union[Tuple[int, int], torch.Tensor]
 
 
+def _shl(x: Word, r: int) -> Word:
+    """``x << r``; a tensor shifts through ``torch.bitwise_left_shift``,
+    which a DTensor computes (its ``<<`` operator returns the input
+    unchanged), with the same kernel as the operator on a plain tensor."""
+    return torch.bitwise_left_shift(x, r) if isinstance(x, torch.Tensor) else x << r
+
+
+def _shr(x: Word, r: int) -> Word:
+    """``x >> r`` (see :func:`_shl`)."""
+    return torch.bitwise_right_shift(x, r) if isinstance(x, torch.Tensor) else x >> r
+
+
 def _rotl(x: Word, r: int) -> Word:
-    return ((x << r) | (x >> (32 - r))) & MASK32
+    return (_shl(x, r) | _shr(x, 32 - r)) & MASK32
 
 
 def threefry2x32(k1: Word, k2: Word, x1: Word, x2: Word) -> Tuple[Word, Word]:
@@ -138,6 +150,6 @@ def uniform(key: Key, shape: Sequence[int], minval: float = 0.0, maxval: float =
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: float32
     in ``[minval, maxval)``."""
     bits = random_bits(key, shape, device)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    floats = (_shr(bits, 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
     return torch.clamp_min(floats * (hi - lo) + lo, float(lo))

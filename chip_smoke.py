@@ -248,7 +248,26 @@ and no result.  The phases:
                a valid three-participant merged trace with a cross-pid
                ``migration`` flow, every final checksum equal to an
                in-process control on the card;
-18. result  — the kernels line, the card line, then
+18. sharded — multi-device: (a) ``ShardedWaveExecutor`` over four
+               logical shards of the card at stress_soa 64 lobbies x
+               65,536, k=8 packed waves (exact, ragged, M=62 with two pad
+               lanes): every lane bit-equal to ``BucketedWaveExecutor``'s,
+               one fold launch per shard; the ``harvest_shards`` census;
+               lobby-frames/s sharded against unsharded over alternating
+               pairs.  (b) ``BatchedRunner(mesh=make_lobby_mesh())`` keeps
+               the plain executor on one card; with four logical shards, 14
+               SyncTest lobbies of stress_soa 10,000 for 40 ticks match the
+               unsharded runner tick for tick with equal dispatches, two pad
+               lanes, and no host sync in the loop.  (c) a one-rank NCCL
+               group and ``make_mesh(1, 1)``: the sharded resim at
+               stress_soa 1M x k=8, speculate and the canonical program
+               bit-equal to the one-device calls; a SyncTest driver over the
+               sharded world (24 ticks) gives the unsharded checksums.  (d)
+               the split fold (partials of 2 and 4 row blocks, summed slots,
+               finalize) bit-equal to the one-call fold and the plain
+               version, with both paths' times.  (e) two example twins as
+               subprocesses with no platform set run on the card;
+19. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Every runner phase runs the runner's defaults unless it names a mode.
@@ -266,6 +285,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -377,6 +397,15 @@ SIZES = {
     "fleet_cli_lobbies": 3,
     "fleet_cli_capacity": 3,
     "fleet_cli_wait_s": 180,
+    "shard_count": 4,  # logical shards of the one card
+    "shard_lobbies": 64,  # at shard_entities: the batched phase's large cell
+    "shard_entities": 65_536,
+    "shard_pairs": 5,
+    "shard_iters": 5,
+    "shard_runner_lobbies": 14,  # 16 lanes on 4 shards: two pad lanes
+    "shard_runner_ticks": 40,
+    "shard_driver_ticks": 24,
+    "shard_twin_timeout_s": 120,
 }
 
 # particles.make_app(rate=8000)'s checkpoint schema digest, pinned by
@@ -4205,6 +4234,416 @@ def phase_fleet(dev, card: str) -> int:
     return launches
 
 
+# -- multi-device: the lobby mesh, the entity mesh, the split fold ----------------
+
+
+def lobby_mesh_of(dev, shards: int):
+    from bevy_ggrs_tpu_torch.parallel import make_lobby_mesh
+
+    return make_lobby_mesh(devices=[dev] * shards)
+
+
+def sharded_waves(dev, card: str) -> dict:
+    """Part (a): ``ShardedWaveExecutor`` over four logical shards of the
+    card at stress_soa 64 lobbies x 65,536 entities, k=8 packed waves (an
+    exact one, a ragged one, and one at M=62, two pad lanes): every lane's
+    final state, stack and checksums bit-equal to ``BucketedWaveExecutor``'s
+    on the same wave, one fold launch per shard; the ``harvest_shards``
+    census; lobby-frames/s sharded against unsharded, alternating over
+    pairs of chained waves."""
+    from bevy_ggrs_tpu_torch import BucketedWaveExecutor, stack_worlds
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.ops.batch import ShardedWaveExecutor
+    from bevy_ggrs_tpu_torch.snapshot.lazy import BatchChecks
+
+    m, n, k, shards = SIZES["shard_lobbies"], SIZES["shard_entities"], SIZES["bench_k"], \
+        SIZES["shard_count"]
+    app = stress_soa.make_app(n_entities=n, device=dev)
+    ref = BucketedWaveExecutor(app, k)
+    sh = ShardedWaveExecutor(app, k, lobby_mesh_of(dev, shards))
+    starts = [b * 7 for b in range(m)]
+    buf, _inputs, _status = wave_buffer(app, starts, k, seed=11)
+    base = app.init_state()
+    worlds = stack_worlds([base] * m)
+    ragged = [(b * 5) % k + 1 for b in range(m)]
+    waves = {"exact": (m, [k] * m), "ragged": (m, ragged),
+             "pad2": (m - 2, ragged[:m - 2])}
+    checked = {}
+    for name, (mw, ks) in waves.items():
+        from bevy_ggrs_tpu_torch.ops.packing import pack_prefix
+
+        wbuf = buf[:mw].copy()
+        for b in range(mw):
+            pack_prefix(wbuf[b], starts[b], ks[b])
+        w = stack_worlds([base] * mw)
+        rb, rf, rs, rc = ref.run_wave_packed(w, wbuf, ks)
+        sync(dev)
+        cf.launches = 0
+        sb, sf, ss, sc = sh.run_wave_packed(w, wbuf, ks)
+        sync(dev)
+        launches = cf.launches
+        host = BatchChecks(sc).host()
+        equal = (sb == rb and trees_equal(sf.gather(), rf) and trees_equal(ss.gather(), rs)
+                 and host == rc.tolist())
+        if not equal or launches != shards:
+            raise SystemExit(f"chip_smoke: sharded wave {name}: bit-equal {equal}, "
+                             f"{launches} fold launches for {shards} shards")
+        checked[name] = {"lobbies": mw, "bucket": sb, "fold_launches": launches,
+                         "lanes": len(sf), "shard_parts": len(sf.parts)}
+        del rf, rs, rc, sf, ss, sc
+    census = sh.harvest_shards(sh.run_wave_packed(worlds, buf, [k] * m)[1:])
+    if census["devices_touched"] != shards:
+        raise SystemExit(f"chip_smoke: sharded census {census}")
+    ks = [k] * m
+    rates = {"sharded": [], "unsharded": []}
+    ws, wu = worlds, worlds
+    for _ in range(SIZES["shard_pairs"]):
+        for label, ex in (("unsharded", ref), ("sharded", sh)):
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(SIZES["shard_iters"]):
+                if label == "sharded":
+                    _, ws, _, _ = ex.run_wave_packed(ws, buf, ks)
+                else:
+                    _, wu, _, _ = ex.run_wave_packed(wu, buf, ks)
+            sync(dev)
+            rates[label].append(SIZES["shard_iters"] * m * k / (time.perf_counter() - t0))
+    out = {"card": card, "lobbies": m, "entities": n, "k": k, "shards": shards,
+           "waves": checked, "census": census}
+    for label, r in rates.items():
+        out[f"{label}_lobby_frames_per_s_median"] = statistics.median(r)
+        out[f"{label}_lobby_frames_per_s_min"] = min(r)
+        out[f"{label}_lobby_frames_per_s_max"] = max(r)
+    out["sharded_over_unsharded"] = (out["sharded_lobby_frames_per_s_median"]
+                                     / out["unsharded_lobby_frames_per_s_median"])
+    return out
+
+
+def sharded_runner(dev, card: str) -> dict:
+    """Part (b): ``BatchedRunner(mesh=make_lobby_mesh())`` on the one card
+    keeps the plain executor; ``BatchedRunner(mesh=<4 logical shards>)``
+    runs 14 SyncTest lobbies of stress_soa 10,000 for 40 ticks and matches
+    the unsharded runner: checksums tick for tick, equal device
+    dispatches, two pad lanes, and no host sync in the loop (sync debug
+    mode "error"; the SyncTest comparisons run at ``finish``)."""
+    from bevy_ggrs_tpu_torch import BatchedRunner, SyncTestSession
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.ops.batch import ShardedWaveExecutor
+    from bevy_ggrs_tpu_torch.parallel import make_lobby_mesh
+
+    m, ticks = SIZES["shard_runner_lobbies"], SIZES["shard_runner_ticks"]
+
+    def make(mesh):
+        app = stress_soa.make_app(n_entities=SIZES["server_entities"], device=dev)
+        sessions = [SyncTestSession(num_players=2, input_shape=(), input_dtype=np.uint8,
+                                    check_distance=2, compare_interval=ticks + 8)
+                    for _ in range(m)]
+        return BatchedRunner(app, sessions, mesh=mesh, read_inputs=lambda b, hs: {
+            h: np.uint8((b * 3 + h + br_frames[0]) % 16) for h in hs})
+
+    br_frames = [0]
+    one = make(make_lobby_mesh())
+    if isinstance(one.exec, ShardedWaveExecutor) or one.planner is not None \
+            or "sharded" in one.stats():
+        raise SystemExit("chip_smoke: a one-card lobby mesh did not keep the plain executor")
+    del one
+    runs = {}
+    for label, mesh in (("unsharded", None), ("sharded", lobby_mesh_of(dev, 4))):
+        br = make(mesh)
+        refs = []
+        br_frames[0] = 0
+        sync(dev)
+        cf.launches = 0
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(ticks):
+                br_frames[0] = t
+                br.tick()
+                refs.append(list(br._world_checksum))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        launches = cf.launches
+        br.finish()
+        st = br.stats()
+        runs[label] = {"sums": [[r() for r in row] for row in refs], "stats": st,
+                       "launches": launches, "seconds": dt,
+                       "lobby_frames_per_s": sum(st["frames"]) / dt}
+    a, b = runs["unsharded"], runs["sharded"]
+    sh = b["stats"]["sharded"]
+    fail = []
+    if a["sums"] != b["sums"]:
+        fail.append("checksums differ")
+    if a["stats"]["device_dispatches"] != b["stats"]["device_dispatches"]:
+        fail.append("device dispatches differ")
+    if sh["pad_lanes"] != 2 or sh["devices"] != 4 or a["stats"]["rollbacks"] == 0:
+        fail.append(f"layout {sh}")
+    if b["launches"] != 4 * b["stats"]["wave_dispatches"]:
+        fail.append(f"{b['launches']} fold launches for {b['stats']['wave_dispatches']} waves")
+    if fail:
+        raise SystemExit(f"chip_smoke: sharded runner: {'; '.join(fail)}")
+    return {"card": card, "lobbies": m, "ticks": ticks, "entities": SIZES["server_entities"],
+            "sharded": sh, "device_dispatches": b["stats"]["device_dispatches"],
+            "rollbacks": b["stats"]["rollbacks"], "fold_launches": b["launches"],
+            "unsharded_fold_launches": a["launches"],
+            "forced_readbacks": b["stats"]["readbacks"]["forced"],
+            "lobby_frames_per_s": {k: v["lobby_frames_per_s"] for k, v in runs.items()},
+            "checksums_compared": m * ticks}
+
+
+def entity_mesh(dev, card: str) -> dict:
+    """Part (c): a one-rank NCCL group on a HashStore and ``make_mesh(1,
+    1)``: the sharded resim at stress_soa 1M x k=8, speculate (M=4) and
+    the canonical program equal the one-device functions bit for bit; a
+    SyncTest driver over the sharded world at 1M (24 ticks, check distance
+    3) gives the unsharded checksums, through the sharded function."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from bevy_ggrs_tpu_torch import GgrsRunner, SyncTestSession
+    from bevy_ggrs_tpu_torch.models import box_game, stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_canonical_fn,
+        make_sharded_resim_fn,
+        make_sharded_speculate_fn,
+        shard_world,
+    )
+
+    def full(tree):
+        from bevy_ggrs_tpu_torch.utils.tree import tree_map
+
+        return tree_map(lambda a: a.full_tensor() if isinstance(a, DTensor) else a, tree)
+
+    mesh = make_mesh(1, 1)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise SystemExit(f"chip_smoke: entity mesh on {dist.get_backend()}")
+    n, k = SIZES["bench_entities"], SIZES["bench_k"]
+    app = stress_soa.make_app(n_entities=n, device=dev)
+    world = app.init_state()
+    rng = np.random.default_rng(3)
+    inputs = on_device(rng.integers(0, 16, (k, 2)).astype(np.uint8), dev)
+    status = on_device(np.zeros((k, 2), np.int8), dev)
+    want = app.resim_fn(world, inputs, status, 0)
+    sharded = make_sharded_resim_fn(app, mesh)
+    sync(dev)
+    cf.partial_launches = cf.finalize_launches = 0
+    got = sharded(world, inputs, status, 0)
+    sync(dev)
+    split = (cf.partial_launches, cf.finalize_launches)
+    if not (trees_equal(full(got[0]), want[0]) and trees_equal(full(got[1]), want[1])
+            and torch.equal(got[2], want[2])) or split != (1, 1):
+        raise SystemExit(f"chip_smoke: sharded resim differs from app.resim_fn ({split})")
+    resim_ms = time_ms(lambda: app.resim_fn(world, inputs, status, 0), 5)
+    sharded_ms = time_ms(lambda: sharded(world, inputs, status, 0), 5)
+    del got, want
+
+    bapp = box_game.make_app(num_players=2, capacity=16, device=dev)
+    bw = bapp.init_state()
+    branches = np.zeros((4, k, 2), np.uint8)
+    for b in range(4):
+        branches[b, :, 1] = b
+    bi, bs = on_device(branches, dev), on_device(np.zeros((4, k, 2), np.int8), dev)
+    s0 = bapp.speculate_fn(bw, bi, bs, 0)
+    s1 = make_sharded_speculate_fn(bapp, mesh)(bw, bi, bs, 0)
+    capp = branched_app(lambda: box_game.make_app(device=dev), dev)
+    lanes, depth = capp.canonical_branches, capp.canonical_depth
+    ci = on_device(rng.integers(0, 16, (lanes, depth, 2)).astype(np.uint8), dev)
+    cs = on_device(np.zeros((lanes, depth, 2), np.int8), dev)
+    n_real = [3] + [depth] * (lanes - 1)
+    g0 = capp.branched_fn(capp.init_state(), ci, cs, 0, n_real)
+    g1 = make_sharded_canonical_fn(capp, mesh)(capp.init_state(), ci, cs, 0, n_real)
+    for name, a, b in (("speculate", s0, s1), ("canonical", g0, g1)):
+        if not all(trees_equal(full(x), y) for x, y in zip(b, a)):
+            raise SystemExit(f"chip_smoke: sharded {name} differs from the one-device call")
+
+    def drive(shard: bool):
+        dapp = stress_soa.make_app(n_entities=n, device=dev)
+        session = SyncTestSession(num_players=2, input_shape=(), input_dtype=np.uint8,
+                                  check_distance=3, compare_interval=1)
+        calls, kwargs = [0], {}
+        if shard:
+            fn = make_sharded_resim_fn(dapp, mesh)
+
+            def counted(*args):
+                calls[0] += 1
+                return fn(*args)
+
+            dapp.__dict__["resim_fn"] = dapp.__dict__["resim_fn_donated"] = counted
+            kwargs["initial_state"] = shard_world(dapp, mesh, dapp.init_state())
+        r = GgrsRunner(dapp, session, packed=False, read_inputs=lambda hs: {
+            h: np.uint8((r.frame * 5 + h) % 16) for h in hs}, **kwargs)
+        sums = []
+        for _ in range(SIZES["shard_driver_ticks"]):
+            r.tick()
+            sums.append(r.checksum)
+        r.finish()
+        return sums, calls[0], r
+
+    ref, _c, _r = drive(False)
+    cf.partial_launches = cf.finalize_launches = 0
+    sums, calls, runner = drive(True)
+    col = next(iter(runner.world.comps.values()))
+    if sums != ref or calls == 0 or not isinstance(col, DTensor):
+        raise SystemExit(f"chip_smoke: sharded driver: equal {sums == ref}, {calls} calls")
+    return {"card": card, "backend": dist.get_backend(), "mesh": list(mesh.mesh.shape),
+            "entities": n, "k": k, "resim_bit_equal": True, "split_launches": split,
+            "speculate_bit_equal": True, "canonical_bit_equal": True,
+            "driver_ticks": len(sums), "driver_sharded_calls": calls,
+            "driver_partial_launches": cf.partial_launches,
+            "driver_finalize_launches": cf.finalize_launches,
+            "driver_world_placements": [repr(p) for p in col.placements],
+            "resim_ms": resim_ms, "sharded_resim_ms": sharded_ms}
+
+
+def split_bound(args, blocks: int) -> dict:
+    """Least times of the split pass's halves on these inputs: the
+    partial pass does the one-call pass's row work (its bound, less the
+    output it does not write, plus its slot sums written); the finalize
+    reads the slot sums and ``next_id`` and writes the output, bound by
+    bytes (its operations are a few per frame)."""
+    k = args[2].shape[0]
+    n_comps = len(args[0])
+    whole = fold_bound(args)
+    out_bytes = k * (1 + n_comps) * 2 * 8
+    slot_bytes = k * (2 * n_comps + 1) * 8
+    part_bytes = whole["bytes"] - out_bytes + blocks * slot_bytes
+    part_ms = max(part_bytes / HBM_BYTES_PER_S * 1e3,
+                  *(whole[t] for t in ("alu_ms", "fma_pipe_ms", "issue_ms")))
+    fin_bytes = slot_bytes + k * 4 + out_bytes
+    return {"partial_bound_ms": part_ms,
+            "partial_bound_by": "bytes" if part_ms == part_bytes / HBM_BYTES_PER_S * 1e3
+            else "operations",
+            "finalize_bound_ms": fin_bytes / HBM_BYTES_PER_S * 1e3,
+            "finalize_bound_by": "bytes", "finalize_bytes": fin_bytes}
+
+
+def split_fold(dev, card: str) -> dict:
+    """Part (d): the split pass at stress_soa 1M x k=8, folded as 2 and as
+    4 row blocks (partials, summed slots, finalize), bit-equal to the
+    one-call fold and to the plain version; the times of both paths, one
+    call and back to back, and each half against its plain version."""
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    n, k = SIZES["bench_entities"], SIZES["bench_k"]
+    app = stress_soa.make_app(n_entities=n, device=dev)
+    stacked = stacked_of(app, app.init_state(), k)
+    args = fold_inputs(app.reg, stacked)
+    lanes, has, ids, alive, pending, tags, next_id, etags = args
+    whole = cf.checksum_fold(*args)
+    plain = cf.checksum_fold_plain(*args)
+    out = {"card": card, "entities": n, "k": k, "components": len(lanes)}
+    max_err = int((whole - plain).abs().max())
+    for blocks in (2, 4):
+        bounds = [n * j // blocks for j in range(blocks + 1)]
+        parts = [([ln[:, lo:hi].contiguous() for ln in lanes],
+                  [h[:, lo:hi].contiguous() for h in has], ids[:, lo:hi].contiguous(),
+                  alive[:, lo:hi].contiguous(), pending[:, lo:hi].contiguous(), tags)
+                 for lo, hi in zip(bounds, bounds[1:])]
+
+        def split(parts=parts):
+            slots = cf.checksum_fold_partial(*parts[0])
+            for p in parts[1:]:
+                slots = slots + cf.checksum_fold_partial(*p)
+            return cf.checksum_fold_finalize(slots & cf.MASK32, tags, next_id, etags)
+
+        got = split()
+        plain_slots = sum(cf.checksum_fold_partial_plain(*p) for p in parts)
+        got_plain = cf.checksum_fold_finalize_plain(plain_slots & cf.MASK32, tags, next_id,
+                                                    etags)
+        for p in parts:
+            err = int((cf.checksum_fold_partial(*p) - cf.checksum_fold_partial_plain(*p))
+                      .abs().max())
+            max_err = max(max_err, err)
+        max_err = max(max_err, int((got - whole).abs().max()),
+                      int((got_plain - plain).abs().max()))
+        if not (torch.equal(got, whole) and torch.equal(got_plain, plain)):
+            raise SystemExit(f"chip_smoke: the split fold over {blocks} blocks differs")
+        out[f"blocks_{blocks}_ms"] = time_ms(split, SIZES["kernel_reps"])
+        out[f"blocks_{blocks}_back_to_back_ms"] = run_ms(split, SIZES["kernel_reps"])
+    slots = cf.checksum_fold_partial(*args[:6])
+    fin_err = int((cf.checksum_fold_finalize(slots, tags, next_id, etags)
+                   - cf.checksum_fold_finalize_plain(slots, tags, next_id, etags)).abs().max())
+    max_err = max(max_err, fin_err)
+    if max_err:
+        raise SystemExit(f"chip_smoke: the split fold's halves differ from plain ({max_err})")
+    out.update(
+        max_abs_err=max_err, tolerance="bit-exact (0)",
+        one_call_ms=time_ms(lambda: cf.checksum_fold(*args), SIZES["kernel_reps"]),
+        one_call_back_to_back_ms=run_ms(lambda: cf.checksum_fold(*args), SIZES["kernel_reps"]),
+        partial_ms=time_ms(lambda: cf.checksum_fold_partial(*args[:6]), SIZES["kernel_reps"]),
+        partial_back_to_back_ms=run_ms(lambda: cf.checksum_fold_partial(*args[:6]),
+                                       SIZES["kernel_reps"]),
+        partial_plain_ms=time_ms(lambda: cf.checksum_fold_partial_plain(*args[:6]),
+                                 SIZES["kernel_reps"]),
+        finalize_ms=time_ms(lambda: cf.checksum_fold_finalize(slots, tags, next_id, etags),
+                            SIZES["kernel_reps"]),
+        finalize_back_to_back_ms=run_ms(
+            lambda: cf.checksum_fold_finalize(slots, tags, next_id, etags),
+            SIZES["kernel_reps"]),
+        finalize_plain_ms=time_ms(
+            lambda: cf.checksum_fold_finalize_plain(slots, tags, next_id, etags),
+            SIZES["kernel_reps"]),
+        **split_bound(args, 1))
+    return out
+
+
+def twins_on_card(card: str) -> dict:
+    """Part (e): two example twins as subprocesses with no platform set:
+    both must run on the card and say so."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BGT_PLATFORM", "JAX_PLATFORMS", "RANK", "WORLD_SIZE")}
+    out = {"card": card}
+    for name, args in (("box_game_synctest", ["--frames", "60", "--check-distance", "3"]),
+                       ("crowd_multichip", ["--per-team", "1024", "--frames", "8"])):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(HERE / "examples_torch" / f"{name}.py"),
+                              *args], capture_output=True, text=True, env=env,
+                             timeout=SIZES["shard_twin_timeout_s"], cwd=HERE)
+        first = res.stdout.splitlines()[0] if res.stdout else ""
+        if res.returncode != 0 or "cuda" not in first:
+            raise SystemExit(f"chip_smoke: twin {name}: rc {res.returncode}:\n"
+                             f"{res.stdout[-1500:]}\n{res.stderr[-1500:]}")
+        out[name] = {"seconds": time.perf_counter() - t0, "first_line": first,
+                     "last_line": res.stdout.splitlines()[-1]}
+    return out
+
+
+def phase_sharded(dev, card: str) -> dict:
+    """Phase 18: the lobby axis (a, b), the entity mesh (c), the split
+    fold (d) and the twins (e).  Returns the fold launches of the driven
+    paths (the lobby waves' one-call folds, the entity mesh's partial and
+    finalize) and the split pass's measurements."""
+    import torch.distributed as dist
+
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    t0 = time.perf_counter()
+    cf.launches = cf.partial_launches = cf.finalize_launches = 0
+    a = sharded_waves(dev, card)
+    emit("sharded_waves", **a)
+    b = sharded_runner(dev, card)
+    emit("sharded_runner", **b)
+    lobby_launches = a["waves"]["exact"]["fold_launches"] + b["fold_launches"]
+    c = entity_mesh(dev, card)
+    emit("sharded_entity_mesh", **c)
+    d = split_fold(dev, card)
+    emit("sharded_split_fold", **d)
+    e = twins_on_card(card)
+    emit("sharded_twins", **e)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    emit("sharded", seconds=time.perf_counter() - t0, card=card)
+    return {"fold": lobby_launches, "partial": c["driver_partial_launches"],
+            "finalize": c["driver_finalize_launches"], "split": d}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4224,6 +4663,24 @@ def main() -> int:
                "megastep": phase_megastep(dev, card), "models": phase_models(dev, card),
                "spectator": phase_spectator(dev), "native": phase_native(dev),
                "fleet": phase_fleet(dev, card)}
+    sharded = phase_sharded(dev, card)
+    by_path["sharded"] = sharded["fold"]
+    split = sharded["split"]
+    halves = [{
+        "name": f"checksum_fold_{half}",
+        "route": "cuda",
+        "source": "bevy_ggrs_tpu_torch/csrc/checksum_fold.cu",
+        "replaces": "docs/pallas_negative_result.md:63",
+        "launches": sharded[half],
+        "launches_by_path": {"sharded": sharded[half]},
+        "max_abs_err": split["max_abs_err"],
+        "ms": split[f"{half}_ms"],
+        "back_to_back_ms": split[f"{half}_back_to_back_ms"],
+        "plain_ms": split[f"{half}_plain_ms"],
+        "bound_ms": split[f"{half}_bound_ms"],
+        "bound_by": split[f"{half}_bound_by"],
+        "library_ms": None,
+    } for half in ("partial", "finalize")]
     print(json.dumps({"kernels": [{
         "name": "checksum_fold",
         "route": "cuda",
@@ -4238,7 +4695,7 @@ def main() -> int:
         "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }, *halves]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

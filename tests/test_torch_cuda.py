@@ -17,7 +17,10 @@ on a forced desync, its per-component parts from the fold kernel equal to
 the CPU's; the fleet: a lobby's live migration and failover on the card
 ending on its control's checksum, the fold on a lobby chunk's
 ``[16, 10000]`` stack, and the armed compile guard tripping on a variant
-first seen after warm-up.
+first seen after warm-up; multi-device: a wave over four logical lobby
+shards of the card bit for bit against the unsharded wave, a one-rank
+NCCL sharded resim against ``app.resim_fn``, and the split fold (row-block
+partials, summed slots, finalize) against the one-call fold.
 
 Marked ``cuda``; each skips without a card.  This file imports neither JAX
 nor the JAX package, so it runs on a machine without JAX:
@@ -1039,3 +1042,101 @@ def test_armed_compile_guard_trips_on_a_new_variant_on_card(cuda):
         assert ei.value.owner == "solo" and len(g.steady_compiles) == 1
     finally:
         compile_guard.set_compile_guard(False)
+
+
+# -- multi-device: logical lobby shards, the one-rank entity mesh, the split fold ----
+
+
+def test_logical_shard_lanes_bit_equal_on_card(cuda):
+    """A lobby-sharded packed wave over four logical shards of the card:
+    every lane bit-equal to the unsharded wave's, one fold launch per
+    shard."""
+    from bevy_ggrs_tpu_torch.ops.batch import (
+        BucketedWaveExecutor,
+        ShardedWaveExecutor,
+        stack_worlds,
+    )
+    from bevy_ggrs_tpu_torch.parallel import make_lobby_mesh
+    from bevy_ggrs_tpu_torch.snapshot.lazy import BatchChecks
+
+    app = stress_soa.make_app(n_entities=N, device=cuda)
+    m, k = 10, 4
+    ks = [4, 1, 3, 4, 2, 4, 4, 1, 2, 3]
+    spec = app.packed_spec
+    buf = spec.new_batch_buffer(m, k)
+    rng = np.random.default_rng(9)
+    for b in range(m):
+        pack_prefix(buf[b], b * 11, ks[b])
+        for i in range(ks[b]):
+            pack_row(spec, buf[b], i, rng.integers(0, 16, 2).astype(np.uint8),
+                     np.zeros(2, np.int8))
+    worlds = stack_worlds([app.init_state()] * m)
+    _, rf, rs, rc = BucketedWaveExecutor(app, k).run_wave_packed(worlds, buf, ks)
+    sh = ShardedWaveExecutor(app, k, make_lobby_mesh(devices=[cuda] * 4))
+    torch.cuda.synchronize()
+    cf.launches = 0
+    _, sf, ss, sc = sh.run_wave_packed(worlds, buf, ks)
+    torch.cuda.synchronize()
+    assert cf.launches == 4
+    for a, b in ((sf.gather(), rf), (ss.gather(), rs)):
+        assert all(torch.equal(x, y) for x, y in zip(tree_flatten(a), tree_flatten(b)))
+    assert BatchChecks(sc).host() == rc.tolist()
+
+
+def test_one_rank_nccl_sharded_resim_equals_resim_fn(cuda):
+    """``make_mesh(1, 1)`` in a process with no group starts a one-rank
+    NCCL group; the sharded resim (fold split into partial, all-reduce and
+    finalize) equals ``app.resim_fn`` bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from bevy_ggrs_tpu_torch.parallel import make_mesh, make_sharded_resim_fn
+
+    started = not dist.is_initialized()
+    mesh = make_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        app = stress_soa.make_app(n_entities=N, device=cuda)
+        world = app.init_state()
+        inputs = torch.randint(0, 16, (K, 2), dtype=torch.uint8, device=cuda)
+        status = torch.zeros((K, 2), dtype=torch.int8, device=cuda)
+        want = app.resim_fn(world, inputs, status, 0)
+        cf.partial_launches = cf.finalize_launches = 0
+        got = make_sharded_resim_fn(app, mesh)(world, inputs, status, 0)
+        assert (cf.partial_launches, cf.finalize_launches) == (1, 1)
+        full = tree_map(lambda a: a.full_tensor() if isinstance(a, DTensor) else a,
+                        (got[0], got[1]))
+        for a, b in zip(tree_flatten(full), tree_flatten((want[0], want[1]))):
+            assert torch.equal(a, b)
+        assert torch.equal(got[2], want[2])
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_split_fold_equals_one_call_on_card(cuda, blocks):
+    """Partials of row blocks, summed mod 2**32 and finalized, equal the
+    one-call fold and the split plain version, bit for bit."""
+    app = stress_soa.make_app(n_entities=N + 3, device=cuda)
+    stacked = tr.resim(app.reg, app.step, app.init_state(),
+                       torch.zeros((K, 2), dtype=torch.uint8, device=cuda),
+                       torch.zeros((K, 2), dtype=torch.int8, device=cuda), 0,
+                       app.retention, app.fps)[1]
+    lanes, has, ids, alive, pending, tags, next_id, etags = fold_inputs(
+        app.reg, stacked, list(app.reg.components))
+    whole = cf.checksum_fold(lanes, has, ids, alive, pending, tags, next_id, etags)
+    n = ids.shape[1]
+    bounds = [n * j // blocks for j in range(blocks + 1)]
+    slots = plain = 0
+    for lo, hi in zip(bounds, bounds[1:]):
+        part = ([ln[:, lo:hi].contiguous() for ln in lanes],
+                [h[:, lo:hi].contiguous() for h in has], ids[:, lo:hi].contiguous(),
+                alive[:, lo:hi].contiguous(), pending[:, lo:hi].contiguous(), tags)
+        slots = slots + cf.checksum_fold_partial(*part)
+        plain = plain + cf.checksum_fold_partial_plain(*part)
+    assert torch.equal(slots, plain)
+    got = cf.checksum_fold_finalize(slots & cf.MASK32, tags, next_id, etags)
+    assert torch.equal(got, whole)
+    assert torch.equal(cf.checksum_fold_finalize_plain(plain & cf.MASK32, tags, next_id,
+                                                       etags), whole)

@@ -8,6 +8,7 @@ neither JAX nor the JAX package, and its entry points refuse to fall back
 to the CPU when no card is present."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -218,12 +219,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "protocol", "lobby", "observe", "scheduler", "worker")]
     expected += ["bevy_ggrs_tpu_torch.fleet", "bevy_ggrs_tpu_torch.utils.compile_guard",
                  "bevy_ggrs_tpu_torch.utils.platform"]
-    # the port's CLIs, their top-level imports run (not their mains)
+    # multi-device: the lobby and entity meshes, multi-host set-up
+    expected += ["bevy_ggrs_tpu_torch.parallel", "bevy_ggrs_tpu_torch.parallel.mesh",
+                 "bevy_ggrs_tpu_torch.parallel.multihost"]
+    # the port's CLIs and the examples' twins, their top-level imports run
+    # (not their mains; on the CPU, as a twin asks for the card otherwise)
     clis = [str(ROOT / "scripts" / f"torch_{n}.py")
-            for n in ("fleet_worker", "fleet_scheduler", "replay_tool")]
+            for n in ("fleet_worker", "fleet_scheduler", "replay_tool", "room_server")]
+    clis += sorted(str(p) for p in (ROOT / "examples_torch").glob("*.py"))
+    assert len(clis) == 4 + 7
     code = f"CLIS = {clis!r}\n" + code
     res = subprocess.run([sys.executable, "-c", code, *expected], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "BGT_PLATFORM": "cpu"})
     assert res.returncode == 0, res.stdout + res.stderr
     # chip_smoke.py and the CLIs drive the port only, in any function too
     import ast
