@@ -16,10 +16,12 @@ core.
 The module layout and names mirror the JAX package, which stays the
 reference.  This package imports torch, never JAX, and nothing of
 ``bevy_ggrs_tpu``.  Entry points run on CUDA unless given
-``device="cpu"``.
+``device="cpu"``.  The top-level names, and those of ``ops`` and
+``utils``, are the JAX package's, so a user's imports switch packages by
+name alone.
 """
 
-from .app import App
+from .app import DEFAULT_FPS, App
 from .batch_runner import BatchedRunner
 from .ops.batch import BucketedWaveExecutor, stack_worlds, unstack_world
 from .ops.resim import StepCtx, select_branch, slice_frame
@@ -53,15 +55,34 @@ from .session import (
     assign_handles,
     wait_for_players,
 )
-from .snapshot.persist import Checkpoint, load_checkpoint, load_world, save_world
-from .snapshot.strategy import (
+from .snapshot import (
     CloneStrategy,
     CopyStrategy,
+    MissingSnapshotError,
     QuantizeStrategy,
     ReflectStrategy,
+    Registry,
+    SnapshotRing,
     Strategy,
+    WorldState,
+    active_count,
+    active_mask,
+    checksum_to_int,
+    despawn,
+    despawn_recursive,
+    despawn_where,
+    insert_component,
+    insert_resource,
+    remove_component,
+    remove_resource,
+    spawn,
+    spawn_many,
+    world_checksum,
 )
+from .snapshot.persist import Checkpoint, load_checkpoint, load_world, save_world
 from .utils.frames import NULL_FRAME
+
+__version__ = "0.1.0"  # the JAX package's
 
 __all__ = [
     "App", "GgrsRunner", "SessionBuilder", "SyncTestSession", "P2PSession",
@@ -78,4 +99,8 @@ __all__ = [
     "RoomServer", "RoomSocket", "assign_handles", "wait_for_players",
     "InputRecorder", "ReplaySession",
     "save_world", "load_world", "load_checkpoint", "Checkpoint",
+    "DEFAULT_FPS", "Registry", "WorldState", "SnapshotRing", "MissingSnapshotError",
+    "active_mask", "active_count", "spawn", "spawn_many", "despawn", "despawn_where",
+    "despawn_recursive", "insert_component", "remove_component", "insert_resource",
+    "remove_resource", "world_checksum", "checksum_to_int",
 ]

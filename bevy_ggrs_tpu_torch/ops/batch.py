@@ -75,6 +75,8 @@ def _refuse_canonical(app) -> None:
 
 def stack_worlds(worlds: List):
     """Stack M structurally identical worlds into one ``[M, ...]`` world."""
+    # bgt: ignore[BGT071]: len(worlds) is the caller's lobby count — bucketed
+    # to wave capacity before dispatch, so the stacked length is stable per bucket
     return tree_map(lambda *xs: torch.stack(xs), *worlds)
 
 

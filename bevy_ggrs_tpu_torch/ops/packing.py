@@ -179,7 +179,7 @@ def repeat_last_row(buf: np.ndarray, k: int, k_pad: int) -> None:
 
 # -- device-side unpacking (bit reinterpretation) ----------------------------
 
-def unpack_seq(spec: PackedSpec, rows: torch.Tensor):
+def unpack_seq(spec: PackedSpec, packed: torch.Tensor):
     """Split an uploaded ``int8[..., k + 1, W]`` buffer back into
     ``(inputs[..., k, P, *shape], status int8[..., k, P])`` on its device;
     leading axes (branch lanes) carry through.
@@ -190,9 +190,9 @@ def unpack_seq(spec: PackedSpec, rows: torch.Tensor):
     stride of ``W`` bytes is only 4-aligned.  Otherwise the input columns
     are copied into a contiguous tensor first (one device copy); the bytes,
     and so the values, are the same either way."""
-    lead = tuple(rows.shape[:-2])
-    k = rows.shape[-2] - 1
-    payload = rows[..., 1:, :]
+    lead = tuple(packed.shape[:-2])
+    k = packed.shape[-2] - 1
+    payload = packed[..., 1:, :]
     raw = payload[..., :spec.in_bytes]
     dtype = torch_dtype(spec.input_dtype)
     size = spec.input_dtype.itemsize

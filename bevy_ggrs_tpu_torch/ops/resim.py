@@ -70,6 +70,8 @@ the lane path an int64 ``[2]`` tensor from the lane's own frame.
 
 from __future__ import annotations
 
+import sys
+import types
 import warnings
 from dataclasses import dataclass
 from functools import cached_property
@@ -78,7 +80,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..snapshot.checksum import branch_checksums, world_checksums
+from ..snapshot.checksum import branch_checksums, world_checksum, world_checksums
 from ..snapshot.world import Registry, WorldState, despawn_confirmed
 from ..utils import staging, threefry
 from ..utils.device import is_dtensor
@@ -352,6 +354,24 @@ def make_resim_fn(reg: Registry, step_fn: StepFn, fps: int, retention: int = 16,
         if donate:
             staging.sanitizer().donate(state, "donated resim input")
         return out
+
+    return fn
+
+
+def make_advance_fn(reg: Registry, step_fn: StepFn, fps: int, seed: int = 0,
+                    retention: int = 16):
+    """Single-frame advance ``fn(state, inputs, status, frame)`` ->
+    ``(state, checksum)``, the JAX package's contract: one :func:`advance`
+    computing ``frame``, then :func:`world_checksum` of the new state (one
+    fold launch on the card).  ``inputs`` and ``status`` lie on the world's
+    device (numpy only for a CPU world).  Unlike ``App.advance_fn`` it
+    takes no host rows through a staging upload."""
+
+    def fn(state, inputs, status, frame, _retire_unused=None):
+        dev = state.device
+        st = advance(reg, step_fn, state, _as_input(inputs, dev), _as_input(status, dev),
+                     int(frame), retention, fps, seed)
+        return st, world_checksum(reg, st)
 
     return fn
 
@@ -666,3 +686,16 @@ def slice_frame(stacked_states, i: int):
     """The state after the ``(i + 1)``-th advance of a stacked resim output
     (views)."""
     return tree_map(lambda a: a[i], stacked_states)
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as its :func:`resim`.  The JAX package's
+    ``ops`` exports the function ``resim`` under the module's own name;
+    here ``bevy_ggrs_tpu_torch.ops.resim`` stays the module (its helpers
+    keep resolving) and a call to it is a call to :func:`resim`."""
+
+    def __call__(self, *args, **kwargs):
+        return resim(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -60,8 +60,8 @@ class VariantProbeReport:
 def _first_difference(a_tree, b_tree) -> Optional[dict]:
     for i, (a, b) in enumerate(zip(tree_flatten(a_tree), tree_flatten(b_tree))):
         if not torch.equal(a, b):
-            idx = (a != b).nonzero()
-            at = tuple(idx[0].tolist()) if len(idx) else ()
+            first = int(torch.argmax((a != b).reshape(-1).to(torch.uint8)))
+            at = tuple(int(j) for j in np.unravel_index(first, a.shape))
             return {"leaf": i, "a": a[at].item() if at else None,
                     "b": b[at].item() if at else None}
     return None
@@ -115,7 +115,7 @@ def probe_program_variants(app, trials: int = 200, k_long: int = 8, seed: int = 
         starts = [int(s) for s in rng.integers(-(2**31), 2**31 - k_long, lanes)]
         worlds = [app.resim_fn(base, rand_inputs(warmup_frames),
                                zeros(warmup_frames, players), 0)[0] for _ in range(lanes)]
-        inputs_b = torch.stack([rand_inputs(k_long) for _ in range(lanes)])
+        inputs_b = rand_inputs(lanes * k_long).reshape(lanes, k_long, *ishape)
         status_b = zeros(lanes, k_long, players)
         starts_t = torch.tensor(starts, dtype=torch.int32).to(dev)
         finals, _, checks = wave(stack_worlds(worlds), inputs_b, status_b, starts_t)

@@ -117,6 +117,7 @@ class LobbySharding:
     ndim: int = 1  # the leaf rank, as in the JAX signature; only axis 0 splits
 
     def lanes(self, m: int) -> int:
+        """Lobbies per shard of an ``m``-lobby wave (``m`` must divide)."""
         d = self.mesh.size
         if m % d:
             raise ValueError(f"{m} lobbies do not divide over {d} shards; pad them "

@@ -356,6 +356,7 @@ class GgrsRunner:
 
     @world.setter
     def world(self, value: WorldState) -> None:
+        """Replace the live world (a restore, a test's forced offset)."""
         self._world = value
         self._world_donatable = False
 
@@ -593,6 +594,33 @@ class GgrsRunner:
             out[f"__has_{n}__"] = to_numpy(self.world.has[n])
         out["__active__"] = to_numpy(active_mask(self.world))
         return out
+
+    def profile(self, logdir: str):
+        """Context manager yielding the runner inside a ``torch.profiler``
+        trace of its host activity and, on a card, the card's: the trace is
+        written into ``logdir`` as a ``*.pt.trace.json`` (Chrome trace
+        format; Perfetto or TensorBoard's profiler plugin read it).  The
+        card's queue is drained before the trace closes."""
+        import contextlib
+
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        dev = self.app.device
+        activities = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+
+        @contextlib.contextmanager
+        def cm():
+            with profile(activities=activities,
+                         on_trace_ready=tensorboard_trace_handler(str(logdir))):
+                try:
+                    yield self
+                finally:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+
+        return cm()
 
     def _staging(self) -> list:
         draft = self.spec_cache._stage if self.spec_cache is not None else None

@@ -165,9 +165,9 @@ class P2PSession:
             self._handle_of_addr[a].sort()
 
         self.endpoints: Dict[Any, PeerEndpoint] = {}
-        # handshake nonce — MUST differ across processes so a restarted peer
-        # at the same addr is detected; host-side protocol state only, never
-        # enters the simulation
+        # bgt: ignore[BGT041]: handshake nonce — MUST differ across processes
+        # so a restarted peer at the same addr is detected; host-side protocol
+        # state only, never enters the simulation
         rng = random.Random(id(self) ^ random.getrandbits(32))
         peer_addrs = sorted(
             {a for a in self.remote_handle_addr.values()}, key=repr

@@ -63,8 +63,8 @@ class SpectatorSession:
             # status-sensitive models replay bit-identically — e.g.
             # DISCONNECTED for a dead player's post-consensus frames)
             input_size=self.input_size * num_players + num_players,
-            # handshake nonce — intentionally unique per process
-            # (stale-session detection); never enters the simulation
+            # bgt: ignore[BGT041]: handshake nonce — intentionally unique per
+            # process (stale-session detection); never enters the simulation
             rng_nonce=random.getrandbits(32),
             disconnect_timeout_s=disconnect_timeout_s,
             disconnect_notify_start_s=disconnect_notify_start_s,

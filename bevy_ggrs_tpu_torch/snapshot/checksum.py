@@ -258,6 +258,18 @@ def world_checksum(reg: Registry, w: WorldState) -> torch.Tensor:
 
 
 def checksum_to_int(cs) -> int:
-    """``[2]`` (hi, lo) checksum (tensor, array or sequence) -> python int."""
+    """``[2]`` (hi, lo) checksum (tensor, array or sequence) -> python int;
+    a lazy ``ChecksumRef`` (``snapshot/lazy.py``) is read, waiting for the
+    card if its copy has not landed."""
+    if hasattr(cs, "to_int"):
+        return cs.to_int()
     hi, lo = (cs.tolist() if hasattr(cs, "tolist") else list(cs))
     return ((int(hi) & MASK32) << 32) | (int(lo) & MASK32)
+
+
+def checksum_peek(cs) -> "int | None":
+    """Non-blocking :func:`checksum_to_int`: a ``ChecksumRef``'s value if
+    its copy has landed, else None; any other checksum is read at once."""
+    if hasattr(cs, "peek"):
+        return cs.peek()
+    return checksum_to_int(cs)

@@ -19,11 +19,12 @@ interval frame once it is confirmed.
   non-blocking read that ``P2PSession._resolve_checksum`` retries each poll.
 - :class:`ReadbackStats` counts the reads of one owner (a runner): peeks
   that returned None, reads that found the copy landed, forced reads.
-  Telemetry mirrors the process's reads (as the JAX package's
-  ``_note_readback`` does): ``readback_harvested_total``,
-  ``readback_forced_total`` and ``host_blocked_seconds`` while it is on,
-  and a ``forced_readback`` flight-recorder entry per forcing read always
-  (forced reads are the pipeline's degrade signal).
+  The process's reads are counted in one place, ``_note_readback`` (as in
+  the JAX package): :func:`readback_stats` (harvested, forced, seconds
+  blocked) always, the telemetry families ``readback_harvested_total``,
+  ``readback_forced_total`` and ``host_blocked_seconds`` while telemetry
+  is on, and a ``forced_readback`` flight-recorder entry per forcing read
+  always (forced reads are the pipeline's degrade signal).
 - :class:`ReadbackQueue` is the pipelined runner's side of it: ``start``
   at dispatch, ``harvest`` of every landed copy at the top of each tick,
   ``flush`` (a blocking pull of everything pending) at flush points.  The
@@ -72,9 +73,22 @@ from ..utils.tree import tree_flatten, tree_map, tree_unflatten
 _REG = _registry()
 
 
+_STATS = {"harvested": 0, "forced": 0, "blocked_seconds": 0.0}
+
+
+def readback_stats() -> dict:
+    """A copy of the process's checksum reads since it started:
+    ``{harvested, forced, blocked_seconds}``."""
+    return dict(_STATS)
+
+
 def _note_readback(harvested: int = 0, forced: int = 0, blocked_s: float = 0.0) -> None:
-    """Telemetry of checksum reads: the registry families while telemetry
-    is on, the flight entry of a forcing read always."""
+    """Count checksum reads: the process's totals always, the registry
+    families while telemetry is on, the flight entry of a forcing read
+    always."""
+    _STATS["harvested"] += harvested
+    _STATS["forced"] += forced
+    _STATS["blocked_seconds"] += blocked_s
     if _REG.enabled:
         if harvested:
             _REG.counter("readback_harvested_total",
@@ -131,7 +145,7 @@ class BatchChecks:
     def _adopt(self, parts: List[torch.Tensor]) -> List[List[int]]:
         self._host = parts[0].tolist() if len(parts) == 1 else \
             [row for p in parts for row in p.tolist()]
-        self._dev = self._pinned = self._event = None
+        self._pinned = self._event = None
         BatchChecks._pending.discard(self)
         return self._host
 
@@ -166,8 +180,7 @@ class BatchChecks:
 
     def _harvest(self) -> List[List[int]]:
         self._stats.harvested += 1
-        if _REG.enabled:
-            _note_readback(harvested=1)
+        _note_readback(harvested=1)
         return self._adopt(self._pinned if self._event is not None else self._parts())
 
     def try_host(self) -> Optional[List[List[int]]]:
@@ -255,6 +268,17 @@ class ChecksumRef:
             return None
         hi, lo = rows[self._i]
         return (hi << 32) | lo
+
+    def device(self) -> torch.Tensor:
+        """The lazy ``[2]`` (hi, lo) row on the card: a view of the batch's
+        checksums, no transfer (a lobby-sharded batch's row on its
+        shard's device)."""
+        i = self._i
+        for part in self._batch._parts():
+            if i < part.shape[0]:
+                return part[i]
+            i -= part.shape[0]
+        raise IndexError(f"checksum row {self._i} is past the batch")
 
 
 def wrap_single_checksum(cs: torch.Tensor,

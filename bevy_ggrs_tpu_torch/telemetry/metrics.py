@@ -187,7 +187,10 @@ class MetricsRegistry:
     def __init__(self, enabled: bool = False):
         self.enabled = enabled
         self._metrics: Dict[str, _Metric] = {}
-        self._lock = threading.Lock()
+        # re-entrant: a garbage collection inside a locked region can run a
+        # runner's finalizer (devmem.forget_scope), which sets a gauge on
+        # this thread; a plain Lock deadlocks there
+        self._lock = threading.RLock()
         # bumped on every reset() so BoundMetric handles held by hot loops
         # know their cached family object is stale
         self.generation = 0

@@ -125,21 +125,21 @@ class TransferSanitizer:
                 "in flight — acquire() the buffer before rewriting it",
             )
 
-    def donate(self, obj, note=""):
-        """``obj`` was donated to a resim: it is dead until its owner
+    def donate(self, arr, note=""):
+        """``arr`` was donated to a resim: it is dead until its owner
         rebinds it."""
-        if not self.enabled or obj is None:
+        if not self.enabled or arr is None:
             return
-        self._donated[id(obj)] = (obj, note)
+        self._donated[id(arr)] = (arr, note)
         while len(self._donated) > self._DONATED_CAP:
             self._donated.pop(next(iter(self._donated)))
 
-    def guard_donated(self, obj, site=""):
-        """Called before handing ``obj`` back into a dispatch."""
-        if not self.enabled or obj is None:
+    def guard_donated(self, arr, site=""):
+        """Called before handing ``arr`` back into a dispatch."""
+        if not self.enabled or arr is None:
             return
-        entry = self._donated.get(id(obj))
-        if entry is not None and entry[0] is obj:
+        entry = self._donated.get(id(arr))
+        if entry is not None and entry[0] is arr:
             note = entry[1]
             self._violate(
                 "donated_reuse",
@@ -148,13 +148,14 @@ class TransferSanitizer:
                 "it; use the world the call returned",
             )
 
-    def undonate(self, obj):
-        """``obj``'s slot was legitimately rebound: forget the donation."""
-        if not self.enabled or obj is None:
+    def undonate(self, arr):
+        """``arr``'s slot was legitimately rebound: forget the donation."""
+        if not self.enabled or arr is None:
             return
-        self._donated.pop(id(obj), None)
+        self._donated.pop(id(arr), None)
 
     def reset(self):
+        """Forget every stamp and donation, and zero the violation counts."""
         self._inflight.clear()
         self._donated.clear()
         self.violations = 0
@@ -175,6 +176,40 @@ def set_sanitize(enabled: bool) -> TransferSanitizer:
     global _SANITIZER
     _SANITIZER = TransferSanitizer(enabled=enabled)
     return _SANITIZER
+
+
+_COMMIT_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def commit(buf, device: DeviceLike = None) -> torch.Tensor:
+    """Upload ``buf`` (a numpy array or host tensor) and wait for the copy
+    only, the JAX package's ``commit``: on return the host may rewrite
+    ``buf``.  On CUDA the copy is queued without blocking on a side stream
+    that only uploads, and the host waits on an event recorded after it,
+    not on the compute stream's work; on the CPU it is a plain copy.  No
+    runner path calls it (they commit through :class:`StagingQueue`, which
+    never waits here)."""
+    devmem.note("staging/last_commit", getattr(buf, "nbytes", 0))
+    san = _SANITIZER
+    san.guard_write(buf, "staging.commit")  # a racing earlier upload of buf
+    san.begin(buf, "staging.commit")
+    src = torch.from_numpy(np.ascontiguousarray(buf)) if isinstance(buf, np.ndarray) else buf
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        out = src.to(dev, copy=True)
+    else:
+        stream = _COMMIT_STREAMS.get(dev)
+        if stream is None:
+            stream = _COMMIT_STREAMS[dev] = torch.cuda.Stream(dev)
+        event = torch.cuda.Event()
+        with torch.cuda.stream(stream):
+            out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+            out.copy_(src, non_blocking=True)
+            event.record(stream)
+        event.synchronize()
+        out.record_stream(torch.cuda.current_stream(dev))
+    san.land(buf)
+    return out
 
 
 class StagingBuffer:

@@ -267,7 +267,29 @@ and no result.  The phases:
                finalize) bit-equal to the one-call fold and the plain
                version, with both paths' times.  (e) two example twins as
                subprocesses with no platform set run on the card;
-19. result  — the kernels line, the card line, then
+19. surface — the public surface's tail: (a) stress_soa at 1M built
+               from top-level names (``App``, ``spawn_many``,
+               ``DEFAULT_FPS``) equal to ``stress_soa.make_app``'s world;
+               ``ops.make_advance_fn`` over 8 frames, each frame's state
+               and checksum bit-equal to ``App.resim_fn``'s k=8 outputs,
+               one fold launch per call, the last ``world_checksum`` equal
+               to the plain fold's; ms per frame against ``resim_fn``'s,
+               in turns; (b) ``GgrsRunner.profile`` around 20 SyncTest
+               ticks at stress_soa 100,000: one ``*.pt.trace.json`` with
+               at least one ``fold_kernel`` kernel and no more than the
+               fold launches counted in the window (a window can lose
+               records at its start); (c) ``readback_stats`` on phase 8's
+               default 1M pair: no forced read and some harvested in the
+               steady loop, equal to the runners' own counts, every
+               landed ``checksum_peek`` equal to ``to_int``; (d)
+               ``scripts/torch_e2e_p2p_check.py``'s pair over loopback UDP
+               in this process, box_game as in the script, then stress_soa
+               1M with peer 0 flipping every frame, 300 ticks per phase: zero
+               desyncs, equal confirmed checksums, rollbacks, one fold
+               launch per resim, frames/s per peer beside phase 8's
+               channel pair; (e) ``scripts/torch_parity_check.py`` as a
+               subprocess exits 0;
+20. result  — the kernels line, the card line, then
                ``{"ok": true, "device": {...}}`` as the last line.
 
 Every runner phase runs the runner's defaults unless it names a mode.
@@ -406,6 +428,13 @@ SIZES = {
     "shard_runner_ticks": 40,
     "shard_driver_ticks": 24,
     "shard_twin_timeout_s": 120,
+    "surface_profile_entities": 100_000,
+    "surface_profile_ticks": 20,
+    "surface_readback_warm": 30,
+    "surface_readback_frames": 120,
+    "surface_advance_reps": 5,
+    "surface_udp_ticks": 300,  # per phase of the twin: lockstep, then staggered
+    "surface_tool_timeout_s": 120,
 }
 
 # particles.make_app(rate=8000)'s checkpoint schema digest, pinned by
@@ -1376,6 +1405,9 @@ def forced_desync(dev) -> dict:
             "remote_checksum": hex(first.remote_checksum)}
 
 
+P2P_RATES: dict = {}  # pair -> frames/s per peer over the ChannelNetwork (phase p2p)
+
+
 def phase_p2p(dev) -> int:
     """Three pairs on the card, the forced desync, and fixed_point's
     confirmed checksums on the card against the CPU's."""
@@ -1395,6 +1427,7 @@ def phase_p2p(dev) -> int:
         agreed = result.pop("agreed")
         if name == "fixed_point":
             fixed_on_card = agreed
+        P2P_RATES[name] = result["frames_per_s_per_peer"]
         emit("p2p", **result)
     emit("p2p_desync", model="box_game", **forced_desync(dev))
     cpu = p2p_run("fixed_point", lambda: fixed_point.make_app(device="cpu"),
@@ -4644,6 +4677,326 @@ def phase_sharded(dev, card: str) -> dict:
             "finalize": c["driver_finalize_launches"], "split": d}
 
 
+# -- phase surface: the public surface's tail ------------------------------------
+
+
+def headline_app(dev):
+    """stress_soa at the headline width built from top-level names only:
+    ``App``, ``spawn_many``, ``DEFAULT_FPS`` and the model's step, with the
+    columns ``stress_soa.make_app`` draws (seed 0)."""
+    from bevy_ggrs_tpu_torch import DEFAULT_FPS, App, spawn_many
+    from bevy_ggrs_tpu_torch.models import stress_soa
+
+    n = SIZES["bench_entities"]
+    app = App(num_players=2, capacity=n, fps=DEFAULT_FPS, input_shape=(),
+              input_dtype=np.uint8, device=dev)
+    for name in ("x", "y", "z", "vx", "vy", "vz"):
+        app.rollback_component(name, (), torch.float32, checksum=True)
+    app.set_step(stress_soa.step)
+    rng = np.random.default_rng(0)
+    cols = {c: rng.uniform(-40, 40, n).astype(np.float32) for c in ("x", "y", "z")}
+    cols.update({c: rng.uniform(-5, 5, n).astype(np.float32) for c in ("vx", "vy", "vz")})
+    app.set_setup(lambda world: spawn_many(app.reg, world, cols, count=n))
+    return app
+
+
+def surface_advance(dev, card: str) -> dict:
+    """(a) ``ops.make_advance_fn`` over k frames of the 1M world (inputs
+    uploaded with ``staging.commit``), each frame's state and checksum
+    bit-equal to ``App.resim_fn``'s k-frame outputs, one fold launch per call; the last ``world_checksum`` equal
+    to the plain fold's; ms per frame against ``resim_fn``'s, in turns."""
+    from bevy_ggrs_tpu_torch import DEFAULT_FPS, checksum_to_int, ops, world_checksum
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.utils import staging
+    from bevy_ggrs_tpu_torch.utils.tree import tree_map
+
+    n, k = SIZES["bench_entities"], SIZES["bench_k"]
+    app = headline_app(dev)
+    world = app.init_state()
+    made = stress_soa.make_app(n_entities=n, device=dev)
+    if checksum_to_int(world_checksum(app.reg, world)) != \
+            checksum_to_int(world_checksum(made.reg, made.init_state())):
+        raise SystemExit("chip_smoke: surface (a): the top-level build differs from "
+                         "stress_soa.make_app's world")
+    del made
+    rng = np.random.default_rng(11)
+    host_inputs = rng.integers(0, 16, (k, 2)).astype(np.uint8)
+    inputs = staging.commit(host_inputs)  # the card by default; waits for the copy only
+    if inputs.device != dev or not torch.equal(inputs.cpu(), torch.from_numpy(host_inputs)):
+        raise SystemExit("chip_smoke: surface (a): staging.commit uploaded other values")
+    status = on_device(np.zeros((k, 2), np.int8), dev)
+    start = 100
+    advance = ops.make_advance_fn(app.reg, app.step, DEFAULT_FPS)
+    _, stacked, checks = app.resim_fn(world, inputs, status, start)
+    sync(dev)
+    cf.launches = 0
+    w, frames_equal = world, 0
+    for i in range(k):
+        w, cs = advance(w, inputs[i], status[i], start + i + 1)
+        if not (trees_equal(w, tree_map(lambda a, i=i: a[i], stacked))
+                and torch.equal(cs, checks[i])):
+            raise SystemExit(f"chip_smoke: surface (a): make_advance_fn's frame {i + 1} "
+                             "differs from resim_fn's")
+        frames_equal += 1
+    sync(dev)
+    launches = cf.launches
+    if launches != k:
+        raise SystemExit(f"chip_smoke: surface (a): {launches} fold launches for {k} "
+                         "make_advance_fn calls")
+    last = world_checksum(app.reg, w)
+    args = fold_inputs(app.reg, tree_map(lambda a: a.unsqueeze(0), w))
+    plain = cf.checksum_fold_plain(*args)[0, 0]
+    if not (torch.equal(last, plain) and torch.equal(last, checks[-1])):
+        raise SystemExit("chip_smoke: surface (a): the last world_checksum differs "
+                         "from the plain fold's")
+
+    def per_frame_ms(fn) -> float:
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        sync(dev)
+        start_ev.record()
+        fn()
+        end_ev.record()
+        end_ev.synchronize()
+        return start_ev.elapsed_time(end_ev) / k
+
+    def run_advance():
+        x = world
+        for i in range(k):
+            x, _ = advance(x, inputs[i], status[i], start + i + 1)
+
+    def run_resim():
+        app.resim_fn(world, inputs, status, start)
+
+    run_advance()
+    run_resim()
+    adv_ms, res_ms = [], []
+    for _ in range(SIZES["surface_advance_reps"]):
+        adv_ms.append(per_frame_ms(run_advance))
+        res_ms.append(per_frame_ms(run_resim))
+    return {"card": card, "entities": n, "k": k, "frames_bit_equal": frames_equal,
+            "fold_launches": launches, "last_checksum": hex(checksum_to_int(last)),
+            "last_equals_plain_fold": True,
+            "advance_ms_per_frame_median": statistics.median(adv_ms),
+            "advance_ms_per_frame": adv_ms,
+            "resim_ms_per_frame_median": statistics.median(res_ms),
+            "resim_ms_per_frame": res_ms}
+
+
+def surface_profile(dev, card: str) -> dict:
+    """(b) ``GgrsRunner.profile`` around SyncTest ticks at stress_soa
+    100,000: one ``*.pt.trace.json``, holding at least one ``fold_kernel``
+    kernel and no more than the fold launches counted in the window."""
+    import tempfile
+
+    from bevy_ggrs_tpu_torch import GgrsRunner, SessionBuilder
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    if torch.autograd._profiler_enabled():
+        raise SystemExit("chip_smoke: surface (b): a profiler is still open")
+    n, ticks = SIZES["surface_profile_entities"], SIZES["surface_profile_ticks"]
+    app = stress_soa.make_app(n_entities=n, device=dev)
+    session = (SessionBuilder.for_app(app).with_check_distance(7)
+               .start_synctest_session())
+    holder = []
+
+    def flipping(handles):
+        phase = (holder[0].frame // 7) % 4
+        return {h: np.uint8(1 << ((phase + h) % 4)) for h in handles}
+
+    runner = GgrsRunner(app, session, read_inputs=flipping)
+    holder.append(runner)
+    for _ in range(3):  # warm-up outside the window
+        runner.tick()
+    with tempfile.TemporaryDirectory(prefix="surface_profile_") as logdir:
+        sync(dev)
+        cf.launches = 0
+        t0 = time.perf_counter()
+        with runner.profile(logdir) as r:
+            for _ in range(ticks):
+                r.tick()
+        window_s = time.perf_counter() - t0
+        launches = cf.launches
+        traces = sorted(Path(logdir).glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise SystemExit(f"chip_smoke: surface (b): {len(traces)} traces in the logdir")
+        nbytes = traces[0].stat().st_size
+        with open(traces[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    folds = [e for e in kernels if "fold_kernel" in e.get("name", "")]
+    runner.finish()
+    if launches == 0 or not folds or len(folds) > launches:
+        raise SystemExit(f"chip_smoke: surface (b): {len(folds)} fold_kernel events in "
+                         f"the trace for {launches} fold launches")
+    return {"card": card, "entities": n, "ticks": ticks, "trace_bytes": nbytes,
+            "trace_events": len(events), "kernel_events": len(kernels),
+            "fold_kernel_events": len(folds), "fold_launches": launches,
+            "window_s": window_s}
+
+
+def surface_readback(dev, card: str) -> dict:
+    """(c) ``readback_stats`` and ``checksum_peek`` on phase p2p's default
+    (pipelined) 1M pair: no forced read in the steady loop, harvests
+    counted, every landed ref's peek equal to its ``to_int``."""
+    from bevy_ggrs_tpu_torch.models import stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+    from bevy_ggrs_tpu_torch.snapshot.checksum import checksum_peek
+    from bevy_ggrs_tpu_torch.snapshot.lazy import readback_stats
+
+    n = SIZES["p2p_stress_entities"]
+    net, runners, seen = channel_pair(lambda: stress_soa.make_app(n_entities=n, device=dev), 5)
+    sync_sessions(runners, net)
+    drive(runners, SIZES["surface_readback_warm"], net)
+    sync(dev)
+    own0 = [dataclasses.asdict(r.readbacks) for r in runners]
+    resims0 = sum(r.resims for r in runners)
+    before = readback_stats()
+    cf.launches = 0
+    drive(runners, SIZES["surface_readback_frames"], net)
+    sync(dev)
+    launches = cf.launches
+    resims = sum(r.resims for r in runners) - resims0
+    after = readback_stats()
+    own = [{key: v - own0[i][key] for key, v in dataclasses.asdict(r.readbacks).items()}
+           for i, r in enumerate(runners)]
+    forced = after["forced"] - before["forced"]
+    harvested = after["harvested"] - before["harvested"]
+    refs = [ref for s in seen for ref in s.values()]
+    landed = 0
+    for ref in refs:
+        v = checksum_peek(ref)
+        if v is not None:
+            landed += 1
+            if v != ref.to_int():
+                raise SystemExit("chip_smoke: surface (c): checksum_peek differs from to_int")
+    for r in runners:
+        r.finish()
+    for ref in refs:
+        v = checksum_peek(ref)
+        if v is None or v != ref.to_int():
+            raise SystemExit("chip_smoke: surface (c): a ref after finish() peeks "
+                             f"{v}, not its value")
+    if forced != 0 or harvested <= 0 or harvested != sum(o["harvested"] for o in own) \
+            or launches != resims or any(desyncs(r) for r in runners):
+        raise SystemExit(f"chip_smoke: surface (c): forced {forced}, harvested {harvested} "
+                         f"(runners {own}), {launches} fold launches for {resims} resims")
+    return {"card": card, "entities": n, "frames": SIZES["surface_readback_frames"],
+            "forced": forced, "harvested": harvested,
+            "blocked_seconds": after["blocked_seconds"] - before["blocked_seconds"],
+            "runners_readbacks": own, "refs_peeked": len(refs), "landed_before_finish": landed,
+            "fold_launches": launches, "resims": resims}
+
+
+def e2e_twin():
+    """``scripts/torch_e2e_p2p_check.py`` loaded as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_e2e_p2p_check", HERE / "scripts" / "torch_e2e_p2p_check.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def surface_udp(dev, card: str) -> list:
+    """(d) the UDP twin's logic in this process: box_game as in the
+    script, then stress_soa 1M with peer 0's inputs flipping every frame; zero
+    desyncs, equal confirmed checksums, rollbacks, one fold launch per
+    resim; frames/s per peer beside phase p2p's channel pair."""
+    from bevy_ggrs_tpu_torch.models import box_game, stress_soa
+    from bevy_ggrs_tpu_torch.ops import checksum_fold as cf
+
+    e2e = e2e_twin()
+    n, ticks = SIZES["p2p_stress_entities"], SIZES["surface_udp_ticks"]
+
+    holders = []
+
+    def flipping(i):
+        """Peer 0 alternates right and up every frame, peer 1 holds right:
+        each frame peer 1 predicts is mispredicted."""
+        holder = []
+        holders.append(holder)
+        return lambda handles: {h: np.uint8(8 if i == 1 or holder[0].frame % 2 == 0 else 1)
+                                for h in handles}
+
+    out = []
+    for name, make_app, inputs, moved in (
+            ("box_game", lambda: box_game.make_app(num_players=2, device=dev),
+             e2e.random_inputs, "pos"),
+            (f"stress_soa_{n}", lambda: stress_soa.make_app(n_entities=n, device=dev),
+             flipping, "x")):
+        runners = e2e.make_pair(make_app, inputs)
+        for holder, r in zip(holders, runners):
+            holder.append(r)
+        holders.clear()
+        seen = [record_confirmed(r) for r in runners]
+        handshake_s = e2e.handshake(runners)
+        sync(dev)
+        frames0 = [r.frame for r in runners]
+        resims0 = sum(r.resims for r in runners)
+        cf.launches = 0
+        t0 = time.perf_counter()
+        e2e.play(runners, ticks)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        launches = cf.launches
+        resims = sum(r.resims for r in runners) - resims0
+        checked = e2e.check(runners, ticks, moved)
+        agreed = agreed_checksums(seen)
+        rollbacks = [r.rollbacks for r in runners]
+        if launches != resims or len(agreed) < ticks // 2:
+            raise SystemExit(f"chip_smoke: surface (d) {name}: {launches} fold launches "
+                             f"for {resims} resims, {len(agreed)} confirmed frames agreed")
+        out.append({"card": card, "pair": name, "transport": "udp 127.0.0.1",
+                    "ticks_per_phase": ticks, "handshake_s": handshake_s, "seconds": dt,
+                    "frames_per_s_per_peer": [(r.frame - f0) / dt
+                                              for r, f0 in zip(runners, frames0)],
+                    "channel_pair_frames_per_s_per_peer": P2P_RATES.get(name),
+                    "final_frames": [r.frame for r in runners], "rollbacks": rollbacks,
+                    "resimulated_frames": [r.rollback_frames for r in runners],
+                    "stalls": [r.stalled_frames for r in runners],
+                    "desyncs": checked["desyncs"], "confirmed_frames_agreed": len(agreed),
+                    "fold_launches": launches, "resims": resims})
+    return out
+
+
+def surface_tool(card: str) -> dict:
+    """(e) ``scripts/torch_parity_check.py`` as a subprocess: exit 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(HERE / "scripts" / "torch_parity_check.py")],
+                         capture_output=True, text=True, cwd=HERE,
+                         timeout=SIZES["surface_tool_timeout_s"])
+    if res.returncode != 0 or "EXACT MATCH" not in res.stdout:
+        raise SystemExit(f"chip_smoke: surface (e): torch_parity_check.py rc "
+                         f"{res.returncode}:\n{res.stdout[-1500:]}\n{res.stderr[-1500:]}")
+    return {"card": card, "rc": res.returncode, "seconds": time.perf_counter() - t0,
+            "stdout": res.stdout.strip().splitlines()}
+
+
+def phase_surface(dev, card: str) -> int:
+    """Phase 19: the public surface's tail on the card, (a) to (e).
+    Returns the fold launches of the driven paths."""
+    t0 = time.perf_counter()
+    a = surface_advance(dev, card)
+    emit("surface_advance", **a)
+    b = surface_profile(dev, card)
+    emit("surface_profile", **b)
+    c = surface_readback(dev, card)
+    emit("surface_readback", **c)
+    d = surface_udp(dev, card)
+    for pair in d:
+        emit("surface_udp", **pair)
+    e = surface_tool(card)
+    emit("surface_parity_tool", **e)
+    launches = (a["fold_launches"] + b["fold_launches"] + c["fold_launches"]
+                + sum(pair["fold_launches"] for pair in d))
+    emit("surface", seconds=time.perf_counter() - t0, fold_launches=launches, card=card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4665,6 +5018,7 @@ def main() -> int:
                "fleet": phase_fleet(dev, card)}
     sharded = phase_sharded(dev, card)
     by_path["sharded"] = sharded["fold"]
+    by_path["surface"] = phase_surface(dev, card)
     split = sharded["split"]
     halves = [{
         "name": f"checksum_fold_{half}",

@@ -93,6 +93,34 @@ def test_gauge_and_kind_conflict():
         telemetry.registry().counter("depth_now", "not a gauge")
 
 
+def test_finalizer_during_a_locked_update_does_not_deadlock():
+    """A collection that starts inside a registry update (any allocation
+    there can start one) runs a dead runner's finalizer, which zeroes its
+    devmem gauge on the same thread.  In a subprocess, so a deadlock fails
+    the test at its timeout instead of hanging the session."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import gc, weakref\n"
+        "from bevy_ggrs_tpu_torch import telemetry\n"
+        "telemetry.enable()\n"
+        "telemetry.devmem.note('dead_runner/world', 64)\n"
+        "class Owner: pass\n"
+        "owner = Owner(); owner.cycle = owner  # only the collector frees it\n"
+        "weakref.finalize(owner, telemetry.devmem.forget_scope, 'dead_runner')\n"
+        "del owner\n"
+        "with telemetry.registry()._lock:  # where Gauge.set holds it\n"
+        "    gc.collect()\n"
+        "assert 'dead_runner/world' not in telemetry.devmem.snapshot()\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
 def test_disabled_is_noop():
     assert not telemetry.enabled()
     telemetry.count("never_total")

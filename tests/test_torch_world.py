@@ -225,9 +225,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the port's CLIs and the examples' twins, their top-level imports run
     # (not their mains; on the CPU, as a twin asks for the card otherwise)
     clis = [str(ROOT / "scripts" / f"torch_{n}.py")
-            for n in ("fleet_worker", "fleet_scheduler", "replay_tool", "room_server")]
+            for n in ("fleet_worker", "fleet_scheduler", "replay_tool", "room_server",
+                      "e2e_p2p_check", "parity_check")]
     clis += sorted(str(p) for p in (ROOT / "examples_torch").glob("*.py"))
-    assert len(clis) == 4 + 7
+    assert len(clis) == 6 + 7
     code = f"CLIS = {clis!r}\n" + code
     res = subprocess.run([sys.executable, "-c", code, *expected], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
